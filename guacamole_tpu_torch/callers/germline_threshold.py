@@ -1,8 +1,8 @@
 """germline-threshold caller on the port's dispatch: call variants where
 the percent of reads supporting an allele exceeds a threshold.
 
-Port of guacamole_tpu/callers/germline_threshold.py, which cannot be
-imported here (it imports the JAX dispatch). The pipeline is the same:
+Port of guacamole_tpu/callers/germline_threshold.py onto the port's
+dispatch. The pipeline is the same:
 
   load reads (or stream them per partition task) -> pack covered loci
   into CSR screen tiles -> the counting screen on the device counts
@@ -24,14 +24,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from guacamole_tpu.gio.vcf import VcfRecord
-from guacamole_tpu.loci.locimap import LociMap
-from guacamole_tpu.pack.tiles import LocusTile
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import MappedRead
-from guacamole_tpu.utils import bases as Bases
-from guacamole_tpu.variants.allele import Allele
-from guacamole_tpu_torch.callers.source import iter_screen_tiles
+from guacamole_tpu_torch.gio.vcf import VcfRecord
+from guacamole_tpu_torch.loci.locimap import LociMap
+from guacamole_tpu_torch.pack.tiles import LocusTile
+from guacamole_tpu_torch.pileup.pileup import Pileup
+from guacamole_tpu_torch.reads.read import MappedRead
+from guacamole_tpu_torch.utils import bases as Bases
+from guacamole_tpu_torch.variants.allele import Allele
 from guacamole_tpu_torch.ops.dispatch import (
     CompactScreen,
     pack_skip_nibbles,
@@ -268,13 +267,13 @@ def _sample_tiles(sample_sources, task_loci, device, tile_size, max_alleles,
     skip_nib = pack_skip_nibbles(device)
     for sample_name, sample_source in sorted(sample_sources.items()):
         for contig in task_loci.contigs:
-            for tile in iter_screen_tiles(
-                sample_source,
+            for tile in sample_source.iter_tiles(
                 contig,
                 task_loci.on_contig(contig),
                 tile_size=tile_size,
                 max_alleles=max_alleles,
                 reference_genome=reference_genome,
+                fields="screen",
                 skip_nibbles=skip_nib,
             ):
                 yield tile, sample_name, sample_source
@@ -295,7 +294,7 @@ def call_variants(
     """Call variants over a loci partitioning (shard -> loci).
 
     reads: a list of MappedReads or a ReadSource (columnar or object)."""
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole_tpu_torch.callers.source import ReadSource
 
     source = (
         reads if isinstance(reads, ReadSource) else ReadSource.from_reads(reads)
@@ -370,7 +369,7 @@ def call_variants_streaming(
     load-then-call. Returns None when streaming is unavailable (non-BAM
     input, no native runtime or index): callers then use load_read_source
     + call_variants."""
-    from guacamole_tpu.callers.streaming import iter_task_sources
+    from guacamole_tpu_torch.callers.streaming import iter_task_sources
 
     task_sources = iter_task_sources(path, filters, loci_partitions)
     if task_sources is None:

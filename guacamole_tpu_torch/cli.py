@@ -1,9 +1,11 @@
 """Command-line interface of the port: `guacamole-torch`.
 
-Ports the germline-threshold and index commands of guacamole_tpu/cli.py
-onto the PyTorch device layer, with the same flags and output. The other
-callers, the device mesh and the multi-process runtime are not ported yet:
-their flags are accepted and refused with a one-line error.
+Ports the germline-threshold, germline-standard and index commands of
+guacamole_tpu/cli.py onto the PyTorch device layer, with the same flags
+and output. The other callers, the device mesh and the multi-process
+runtime are not ported yet: their flags are accepted and refused with a
+one-line error. Every command that touches a device runs on the GPU
+unless --device cpu asks for the CPU.
 
     python -m guacamole_tpu_torch.cli germline-threshold --reads x.bam --out x.vcf
 """
@@ -15,7 +17,7 @@ import os
 import sys
 from typing import List, Optional
 
-from guacamole_tpu.utils.progress import DelayedMessages, progress
+from guacamole_tpu_torch.utils.progress import DelayedMessages, progress
 from guacamole_tpu_torch import __version__
 
 
@@ -77,7 +79,7 @@ def _add_concordance_args(p: argparse.ArgumentParser) -> None:
 
 
 def _print_concordance(args, records) -> None:
-    from guacamole_tpu.concordance import print_genotype_concordance
+    from guacamole_tpu_torch.concordance import print_genotype_concordance
 
     print_genotype_concordance(
         records,
@@ -156,6 +158,22 @@ def _add_distributed_args(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_device_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device",
+        default="cuda",
+        choices=["cuda", "cpu"],
+        help="Where the screens run: 'cuda' (the default; fails when no "
+        "CUDA device is present) or 'cpu'.",
+    )
+
+
+def _resolve_device(args):
+    from guacamole_tpu_torch.platform import device
+
+    return device(args.device)
+
+
 def _refuse_unported(args) -> None:
     """One device, one process: refuse what would need the mesh or the
     multi-process runtime, which are not yet ported."""
@@ -182,7 +200,7 @@ def _default_parallelism() -> int:
 
 
 def _partition(args, loci_set, *read_lists):
-    from guacamole_tpu.loci.partition import partition_loci_from_args
+    from guacamole_tpu_torch.loci.partition import partition_loci_from_args
 
     return partition_loci_from_args(
         args.parallelism,
@@ -198,7 +216,7 @@ def _streaming_partitions(args, loci_set, path):
     uniform with --partition-accuracy 0, else depth-balanced from the BAM
     index's byte-density histogram (no read decode). None when depth
     balancing needs an index that can't be built."""
-    from guacamole_tpu.loci.partition import (
+    from guacamole_tpu_torch.loci.partition import (
         partition_loci_by_index_depth,
         partition_loci_uniformly,
     )
@@ -217,7 +235,7 @@ def _streaming_partitions(args, loci_set, path):
         )
     if args.partition_accuracy == 0:
         return partition_loci_uniformly(tasks, loci_set)
-    from guacamole_tpu.callers.streaming import ensure_bam_index
+    from guacamole_tpu_torch.callers.streaming import ensure_bam_index
 
     bai_path = ensure_bam_index(path)
     if bai_path is None:
@@ -242,7 +260,7 @@ def _streaming_eligible(args) -> bool:
 def _try_streaming_threshold(args, loci_builder, reference, device):
     """Streaming germline-threshold (per-task BAM pushdown); None when the
     streaming path is unavailable."""
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole_tpu_torch.reads.read import InputFilters
     from guacamole_tpu_torch.callers.germline_threshold import (
         call_variants_streaming,
     )
@@ -251,7 +269,7 @@ def _try_streaming_threshold(args, loci_builder, reference, device):
         # Availability probing only: a non-BAM input (or malformed header)
         # falls back to the whole-file loader, which reports its own
         # errors properly.
-        from guacamole_tpu.gio.bam import BamFile
+        from guacamole_tpu_torch.gio.bam import BamFile
 
         dictionary = dict(BamFile(args.reads).references)
     except Exception:
@@ -286,6 +304,7 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     _add_reads_args(p)
     _add_output_args(p)
     _add_distributed_args(p)
+    _add_device_args(p)
     p.add_argument(
         "--threshold",
         type=int,
@@ -304,18 +323,17 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     args = p.parse_args(argv)
     _refuse_unported(args)
 
-    from guacamole_tpu.callers.common import (
+    from guacamole_tpu_torch.callers.common import (
         load_read_source,
         resolve_loci_builder,
         validate_output_path,
         write_variants,
     )
-    from guacamole_tpu.gio.fasta import ReferenceGenome
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole_tpu_torch.gio.fasta import ReferenceGenome
+    from guacamole_tpu_torch.reads.read import InputFilters
     from guacamole_tpu_torch.callers.germline_threshold import call_variants
-    from guacamole_tpu_torch.platform import device as default_device
 
-    device = default_device()
+    device = _resolve_device(args)
     validate_output_path(args.out)
     loci_builder = resolve_loci_builder(args.loci, args.loci_from_file)
     reference = (
@@ -332,7 +350,7 @@ def cmd_germline_threshold(argv: List[str]) -> int:
         # overlapping the next task's IO with device screens.
         calls = _try_streaming_threshold(args, loci_builder, reference, device)
         if calls is not None:
-            from guacamole_tpu.gio.bam import BamFile
+            from guacamole_tpu_torch.gio.bam import BamFile
 
             contig_lengths = dict(BamFile(args.reads).references)
     if calls is None:
@@ -377,6 +395,31 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     return 0
 
 
+def cmd_germline_standard(argv: List[str]) -> int:
+    from guacamole_tpu_torch.callers.germline_standard import main as run
+
+    rc = run(
+        argv,
+        {
+            "base": _add_base_args,
+            "loci": _add_loci_args,
+            "reads": _add_reads_args,
+            "output": _add_output_args,
+            "distributed": _add_distributed_args,
+            "device": _add_device_args,
+            "concordance": _add_concordance_args,
+            "refuse_unported": _refuse_unported,
+            "resolve_device": _resolve_device,
+            "partition": _partition,
+            "streaming_partitions": _streaming_partitions,
+            "streaming_eligible": _streaming_eligible,
+            "print_concordance": _print_concordance,
+        },
+    )
+    DelayedMessages.default.print()
+    return rc
+
+
 def cmd_index(argv: List[str]) -> int:
     """Build a .bai index for a coordinate-sorted BAM (enables the
     BAM-index region pushdown in the loaders)."""
@@ -389,7 +432,7 @@ def cmd_index(argv: List[str]) -> int:
         "--out", default="", help="Index path (default: <bam>.bai)"
     )
     args = p.parse_args(argv)
-    from guacamole_tpu.gio.bai import build_bam_index
+    from guacamole_tpu_torch.gio.bai import build_bam_index
 
     out = build_bam_index(args.bam, args.out or None)
     progress(f"Wrote index: {out}")
@@ -401,6 +444,10 @@ COMMANDS = {
         cmd_germline_threshold,
         "call variants by thresholding read counts (toy example)",
     ),
+    "germline-standard": (
+        cmd_germline_standard,
+        "call variants using a simple quality-based probability",
+    ),
     "index": (
         cmd_index,
         "Build a .bai index for a coordinate-sorted BAM",
@@ -409,7 +456,7 @@ COMMANDS = {
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from guacamole_tpu.platform import tune_allocator
+    from guacamole_tpu_torch.platform import tune_allocator
 
     tune_allocator()
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -461,10 +508,10 @@ def _dispatch(argv: List[str]) -> int:
         if "--debug" in argv:
             raise
         print(
-            f"guacamole-torch {command}: error: {type(exc).__name__}: {exc}",
+            f"guacamole-torch {command}: error: {type(exc).__name__}: {exc} "
+            "(re-run with --debug for the full traceback)",
             file=sys.stderr,
         )
-        print("(re-run with --debug for the full traceback)", file=sys.stderr)
         return 1
 
 

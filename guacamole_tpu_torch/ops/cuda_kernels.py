@@ -1,8 +1,9 @@
-"""Wrappers of the hand-written CUDA kernels (ops/csrc/csr_screen.cu).
+"""Wrappers of the hand-written CUDA kernels (ops/csrc/*.cu).
 
 Port of guacamole_tpu/ops/pallas_kernels.py:247-367 (_lane_cumsum,
-_csr_prefix_kernel, pallas_csr_screen) plus the compaction that the JAX
-package left to XLA (kernels.py::tile_stats_csr_compact).
+_csr_prefix_kernel, pallas_csr_screen), the compaction that the JAX
+package left to XLA (kernels.py::tile_stats_csr_compact), and
+pallas_kernels.py:370-579 (_ll_screen_kernel, pallas_likelihood_screen).
 
 A tensor on the CPU takes the kernel's plain twin in ops/kernels.py. A
 tensor on a CUDA device launches the kernel, on the current stream, or
@@ -13,14 +14,16 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from guacamole_tpu_torch.ops import kernels
 from guacamole_tpu_torch.ops.build import load_kernels
 
-LAUNCHES = {"csr_count_screen": 0, "csr_compact": 0}
+LAUNCHES = {"csr_count_screen": 0, "csr_compact": 0, "ll_screen": 0}
 
 
 def reset_launches() -> None:
@@ -132,3 +135,78 @@ def csr_compact(
     LAUNCHES["csr_compact"] += 1
     return out
 
+
+
+def ll_screen(
+    ll_pack: torch.Tensor,  # [L, D] uint16, or uint8 with ll_qvals
+    flag_words: torch.Tensor,  # [L] int32 holding the uint32 flag words
+    max_alleles: int,
+    margin: float = 0.5,
+    min_phred: float = 0.0,
+    ll_qvals=None,  # [Q <= 16] uint8 phred values, on the HOST
+    ll_mapq: Optional[torch.Tensor] = None,  # [L, D] uint8: the tumor form
+) -> torch.Tensor:
+    """Genotype-likelihood candidate flags ([L] bool) over a dense tile:
+    the contract of pallas_likelihood_screen and of kernels.ll_screen, in
+    all four forms (germline or tumor, uint16 or uint8 qual-dictionary).
+    The flag words stay packed (is_variant bits 0..14, is_standard_alt
+    bits 16..30) and are unpacked inside the kernel. ll_qvals is a launch
+    parameter like margin: at most 16 bytes, read on the host. The GQ
+    gate (min_phred > 0) applies to the germline form only."""
+    if ll_pack.dtype == torch.uint8:
+        if ll_qvals is None:
+            raise ValueError("a uint8 ll_pack needs its qual dictionary")
+        qvals = np.ascontiguousarray(
+            ll_qvals.cpu().numpy() if isinstance(ll_qvals, torch.Tensor)
+            else ll_qvals, dtype=np.uint8,
+        )
+        if qvals.ndim != 1 or qvals.size > 16:
+            raise ValueError(
+                f"ll_qvals: expected at most 16 phred values, got shape "
+                f"{qvals.shape}"
+            )
+    elif ll_pack.dtype == torch.uint16:
+        if ll_qvals is not None:
+            raise ValueError("a uint16 ll_pack takes no qual dictionary")
+        qvals = None
+    else:
+        raise ValueError(f"ll_pack: expected uint8 or uint16, got {ll_pack.dtype}")
+    _check(ll_pack, "ll_pack", ll_pack.dtype, 2)
+    _check(flag_words, "flag_words", torch.int32, 1)
+    L, D = ll_pack.shape
+    if flag_words.numel() != L:
+        raise ValueError(f"flag_words has {flag_words.numel()} rows, ll_pack {L}")
+    tensors = [ll_pack, flag_words]
+    if ll_mapq is not None:
+        _check(ll_mapq, "ll_mapq", torch.uint8, 2)
+        if ll_mapq.shape != ll_pack.shape:
+            raise ValueError(
+                f"ll_mapq {tuple(ll_mapq.shape)} != ll_pack {tuple(ll_pack.shape)}"
+            )
+        tensors.append(ll_mapq)
+    kernels.check_alleles(max_alleles)
+    if D < 1:
+        raise ValueError("ll_pack needs at least one depth slot")
+    dev = _device_of(*tensors)
+    if dev.type == "cpu":
+        return kernels.ll_screen(
+            ll_pack, flag_words, max_alleles, margin, min_phred,
+            None if qvals is None else torch.from_numpy(qvals), ll_mapq,
+        )
+    out = torch.empty(L, dtype=torch.bool, device=dev)
+    if L == 0:
+        return out
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.guac_ll_screen(
+            ll_pack.data_ptr(), ll_pack.element_size(),
+            None if ll_mapq is None else ll_mapq.data_ptr(),
+            None if qvals is None else qvals.ctypes.data_as(ctypes.c_void_p),
+            0 if qvals is None else int(qvals.size),
+            flag_words.data_ptr(), L, D, max_alleles,
+            float(margin), float(min_phred), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "ll_screen")
+    LAUNCHES["ll_screen"] += 1
+    return out

@@ -3,13 +3,19 @@ kernels run, and how results come back.
 
 Ports the CSR counting path of guacamole_tpu/ops/dispatch.py (transfer
 accounting, staging, pending results, the slab split, the compact screen,
-the host-count screen, prefetch_iter and the pipelined screens). The wire
-form is the JAX package's: the uint8 CSR nibble blob padded to
+the host-count screen, prefetch_iter and the pipelined screens) and its
+likelihood-screen path (candidates_of, PendingCandidates, ll_pack_of,
+ll_mapq_of, pack_flag_words, the slabbed ll_screen_arrays_launch, the
+germline and tumor launches, pipelined). The wire forms are the JAX
+package's: for the counting screens the uint8 CSR nibble blob padded to
 _bucket_bytes with 0xFF, uint16 per-row nibble-byte counts (int32 offsets
-for a slab with a row over 64 KB), and uint16 variant words.
+for a slab with a row over 64 KB), and uint16 variant words; for the
+likelihood screens the dense [L, D] ll_pack (uint16, or uint8 with a qual
+dictionary), the uint8 MAPQ plane of the tumor form, and one uint32 flag
+word per row.
 
-On a CUDA device the counting screen and the candidate compaction are the
-hand-written kernels of ops/cuda_kernels.py; inputs are staged from pinned
+On a CUDA device the counting screen, the candidate compaction and the
+likelihood screen are the hand-written kernels of ops/cuda_kernels.py; inputs are staged from pinned
 host memory with non_blocking copies, outputs come back into pinned host
 buffers, and result() waits on one CUDA event per launch. On the CPU the
 same calls run the kernels' plain twins. All CUDA work stays on the
@@ -19,6 +25,7 @@ consuming thread: prefetch_iter's worker only runs the native packer.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 from collections import deque
 from typing import NamedTuple, Optional
@@ -29,6 +36,7 @@ import torch
 from guacamole_tpu_torch.ops import cuda_kernels
 from guacamole_tpu_torch.ops.kernels import (
     MAX_CSR_ALLELES,
+    check_alleles,
     pack_variant_words16,
     row_offsets,
 )
@@ -39,6 +47,10 @@ from guacamole_tpu_torch.ops.kernels import (
 TRANSFER_STATS = {
     "h2d_bytes": 0, "h2d_calls": 0, "d2h_bytes": 0, "d2h_calls": 0,
     "launches": 0,
+    # Likelihood screens: [L, D] slots staged, and (only with
+    # GUAC_TRANSFER_STATS=1, as it costs a pass over each tile) the valid
+    # elements among them, so H2D bytes can be stated per element.
+    "ll_cells": 0, "ll_elements": 0,
 }
 _STATS_LOCK = threading.Lock()
 
@@ -127,7 +139,7 @@ class _HostCountsScreen:
         self._compact = compact
 
     def result(self):
-        from guacamole_tpu.runtime.native import counts_screen_native
+        from guacamole_tpu_torch.runtime.native import counts_screen_native
 
         candidates = counts_screen_native(
             self._counts, self._is_variant, self._threshold
@@ -358,7 +370,7 @@ def _pad_slab_rows(row_off: np.ndarray, is_variant: np.ndarray):
     (pack.columnar._bucket_rows): appended rows are empty (offsets repeat
     the blob end, variant flags all false), so they count nothing and are
     never candidates."""
-    from guacamole_tpu.pack.columnar import _bucket_rows
+    from guacamole_tpu_torch.pack.columnar import _bucket_rows
 
     nr = len(row_off) - 1
     npad = _bucket_rows(nr)
@@ -451,6 +463,323 @@ def screen_csr_compact_launch(
 
     slabs = _launch_slabs(csr_nib, row_off, is_variant, device, launch_one)
     return slabs[0][2] if len(slabs) == 1 else _MergedCompacts(slabs)
+
+
+# --- likelihood screens ------------------------------------------------------
+
+
+def candidates_of(result) -> np.ndarray:
+    """The [L] bool candidate mask from either screen-result kind
+    (PendingCandidates ndarray or a ScreenResult)."""
+    return (
+        result
+        if isinstance(result, np.ndarray)
+        else np.asarray(result.candidates)
+    )
+
+
+class PendingCandidates:
+    """A launched likelihood screen's [L] bool mask (a device tensor,
+    fetched into a pinned buffer behind one CUDA event), or a mask the
+    native packer already computed on the host (a numpy array)."""
+
+    __slots__ = ("_host", "_fetch")
+
+    def __init__(self, arr, staged_from=()):
+        if isinstance(arr, np.ndarray):
+            self._host, self._fetch = arr, None
+        else:
+            self._host, self._fetch = None, _Fetch([arr], staged_from)
+
+    def result(self) -> np.ndarray:
+        if self._fetch is not None:
+            (self._host,) = self._fetch.wait()
+            self._fetch = None
+        return self._host
+
+
+def ll_pack_of(tile, min_mapq: int = 0) -> np.ndarray:
+    """A tile's likelihood-screen encoding (allele_id | qual << 4 uint16,
+    0xFFFF empty/filtered), from the native packer when present, else
+    packed here from the full per-element tensors."""
+    pack = getattr(tile, "ll_pack", None)
+    if pack is not None:
+        packed_min = getattr(tile, "ll_min_mapq", None) or 0
+        if packed_min != min_mapq:
+            raise ValueError(
+                "tile was likelihood-packed with min_mapq=%d but the "
+                "screen requested min_mapq=%d" % (packed_min, min_mapq)
+            )
+        return pack
+    if tile.valid is None:
+        raise ValueError(
+            "tile has neither a native ll_pack nor per-element tensors"
+        )
+    keep = np.asarray(tile.valid)
+    if min_mapq > 0:
+        keep = keep & (np.asarray(tile.mapq) >= min_mapq)
+    aid = np.asarray(tile.allele_id)
+    qual = np.asarray(tile.qual).astype(np.uint16)
+    return np.where(
+        keep, (aid & 0xF).astype(np.uint16) | (qual << 4), np.uint16(0xFFFF)
+    ).astype(np.uint16)
+
+
+def ll_mapq_of(tile, min_mapq: int = 0) -> np.ndarray:
+    """A tile's per-element read-MAPQ plane for the alignment-included
+    tumor screen ([L, D] uint8), from the native packer when present, else
+    derived from the full per-element tensors. Values are only read at
+    slots valid in ll_pack, so fill values for empty slots are irrelevant."""
+    mq = getattr(tile, "ll_mapq", None)
+    if mq is not None:
+        return np.asarray(mq)
+    if tile.mapq is None:
+        raise ValueError(
+            "tile has neither a native ll_mapq nor per-element tensors"
+        )
+    return np.clip(np.asarray(tile.mapq), 0, 255).astype(np.uint8)
+
+
+def pack_flag_words(is_variant, is_standard_alt) -> np.ndarray:
+    """[L, K <= 15] bool x2 -> [L] uint32 (is_variant bits 0..14,
+    is_standard_alt bits 16..30): 4 B/locus across the link instead of 2K
+    bool bytes. The kernel unpacks them. Raises when K > 15: a 16th
+    allele's variant bit would land on bit 15 and read as nothing, and its
+    standard bit on bit 31."""
+    iv = np.asarray(is_variant, dtype=bool)
+    sa = np.asarray(is_standard_alt, dtype=bool)
+    if iv.ndim != 2 or iv.shape != sa.shape:
+        raise ValueError(
+            f"is_variant {iv.shape} and is_standard_alt {sa.shape} must be "
+            "equal [L, K] shapes"
+        )
+    check_alleles(iv.shape[1])
+    return _plane_bits(iv) | (_plane_bits(sa) << np.uint32(16))
+
+
+def _plane_bits(plane: np.ndarray) -> np.ndarray:
+    """[L, K <= 15] bool -> [L] uint32 with bit k = plane[:, k]. Eight
+    0/1 bytes read as one little-endian uint64 gather into one byte with a
+    multiply (byte k lands on bit 56 + k): one pass per eight columns,
+    where shifting and summing K widened columns makes K [L] uint32
+    temporaries per plane (megatiles have a million rows)."""
+    L, K = plane.shape
+    width = 8 if K <= 8 else 16
+    if K != width or not plane.flags.c_contiguous:
+        padded = np.zeros((L, width), dtype=bool)
+        padded[:, :K] = plane
+        plane = padded
+    if sys.byteorder != "little":
+        packed = np.packbits(plane, axis=1, bitorder="little")
+    else:
+        packed = (
+            plane.view(np.uint64) * np.uint64(0x0102040810204080)
+        ) >> np.uint64(56)
+    bits = packed[:, 0].astype(np.uint32)
+    if width == 16:
+        bits |= packed[:, 1].astype(np.uint32) << np.uint32(8)
+    return bits
+
+
+_TORCH_DTYPE = {
+    "uint8": torch.uint8, "uint16": torch.uint16, "int32": torch.int32,
+}
+
+
+class LLWire(NamedTuple):
+    """One likelihood screen's inputs, in the kernel's form."""
+
+    pack: torch.Tensor  # [L, D] uint16, or uint8 with qvals
+    mapq: Optional[torch.Tensor]  # [L, D] uint8 (tumor form) or None
+    flag_words: torch.Tensor  # [L] int32 holding the uint32 words
+    qvals: Optional[np.ndarray]  # [Q <= 16] uint8, stays on the host
+    staged_from: tuple  # the host buffers, held until the launch is fetched
+
+
+def ll_wire_from_numpy(
+    ll_pack, ll_mapq, is_variant, is_standard_alt, ll_qvals,
+    device: torch.device,
+) -> LLWire:
+    """Turn the numpy arrays the JAX dispatch stages for a likelihood
+    screen (ll_pack [L, D] uint16, or uint8 with ll_qvals; ll_mapq [L, D]
+    uint8 or None; the two [L, K] bool allele planes) into the port's
+    device tensors, through the same wire form (the planes travel as one
+    uint32 flag word per row). The dispatch and the tests both build
+    kernel inputs here, so the two packages compute from identical bytes.
+    The qual dictionary stays on the host: it is a launch parameter."""
+    ll_pack = np.asarray(ll_pack)
+    want = np.uint8 if ll_qvals is not None else np.uint16
+    if ll_pack.ndim != 2 or ll_pack.dtype != want:
+        raise ValueError(
+            f"ll_pack: expected a 2-d {np.dtype(want)} array, got "
+            f"{ll_pack.dtype} of shape {ll_pack.shape}"
+        )
+    words = pack_flag_words(is_variant, is_standard_alt)
+    if len(words) != ll_pack.shape[0]:
+        raise ValueError(
+            f"{len(words)} rows of allele flags for {ll_pack.shape[0]} rows"
+        )
+    arrays = [ll_pack, words.view(np.int32)]  # bit 31 is never set
+    if ll_mapq is not None:
+        ll_mapq = np.asarray(ll_mapq)
+        if ll_mapq.shape != ll_pack.shape or ll_mapq.dtype != np.uint8:
+            raise ValueError(
+                f"ll_mapq: expected uint8 of shape {ll_pack.shape}, got "
+                f"{ll_mapq.dtype} of shape {ll_mapq.shape}"
+            )
+        arrays.append(ll_mapq)
+    host = []
+    for a in arrays:
+        buf = _host_buffer(a.shape, _TORCH_DTYPE[a.dtype.name], device)
+        buf.numpy()[...] = a
+        host.append(buf)
+    if device.type == "cuda":
+        _count(
+            h2d_bytes=sum(t.numel() * t.element_size() for t in host),
+            h2d_calls=1,
+            ll_cells=ll_pack.size,
+        )
+        if os.environ.get("GUAC_TRANSFER_STATS", "") == "1":
+            empty = 0xFF if ll_qvals is not None else 0xFFFF
+            _count(ll_elements=int(np.count_nonzero(ll_pack != empty)))
+    dev = [t.to(device, non_blocking=True) for t in host]
+    return LLWire(
+        dev[0],
+        dev[2] if ll_mapq is not None else None,
+        dev[1],
+        None if ll_qvals is None else np.asarray(ll_qvals, dtype=np.uint8),
+        tuple(host),
+    )
+
+
+def _ll_screen_device(
+    wire: LLWire, max_alleles: int, margin: float = 0.5,
+    min_phred: float = 0.0,
+) -> torch.Tensor:
+    """Launch the genotype-likelihood candidate screen on staged inputs
+    (germline form, or the alignment-included tumor form when the wire has
+    a MAPQ plane, which takes no GQ gate). Returns the device candidates."""
+    flags = cuda_kernels.ll_screen(
+        wire.pack, wire.flag_words, max_alleles, margin=margin,
+        min_phred=0.0 if wire.mapq is not None else min_phred,
+        ll_qvals=wire.qvals, ll_mapq=wire.mapq,
+    )
+    _count(launches=1)
+    return flags
+
+
+# Bound on the cells ([rows, D] slots) of one likelihood-screen launch. The
+# plain version (the CPU path) holds several [rows, D] f32 temporaries, so
+# CPU slabs stay at the JAX package's 4M cells. The CUDA kernel has no
+# intermediate at all, so a GPU slab is bounded only by its pinned staging
+# buffer: 64M cells (64 MB of uint8, 128 MB of uint16) takes a whole
+# 1M-row megatile at D = 32 or 64 in one copy and one launch.
+LL_SLAB_CELLS = 4 << 20
+LL_SLAB_CELLS_CUDA = 64 << 20
+
+
+def _ll_slab_cells(device: torch.device) -> int:
+    return LL_SLAB_CELLS_CUDA if device.type == "cuda" else LL_SLAB_CELLS
+
+
+class _MergedCandidates:
+    """Slab-launched candidate screens presenting one tile-wide mask."""
+
+    __slots__ = ("_pendings",)
+
+    def __init__(self, pendings):
+        self._pendings = pendings  # [PendingCandidates], in row order
+
+    def result(self) -> np.ndarray:
+        return np.concatenate([p.result() for p in self._pendings])
+
+
+def ll_screen_arrays_launch(
+    ll_pack, ll_mapq, is_variant, is_standard_alt, max_alleles: int,
+    margin: float = 0.5,
+    min_phred: float = 0.0,
+    ll_qvals=None,
+    *,
+    device: torch.device,
+):
+    """The likelihood screen on raw arrays, as a pending [L] bool mask.
+    Megatile inputs split into row slabs whose masks concatenate at fetch.
+    (The JAX package also pads each slab's rows to a bucket, for its set of
+    compiled shapes; nothing here compiles per shape, so slabs are not
+    padded.)"""
+    ll_pack = np.asarray(ll_pack)
+    L, D = ll_pack.shape
+    is_variant = np.asarray(is_variant)
+    is_standard_alt = np.asarray(is_standard_alt)
+    slab_rows = max(256, _ll_slab_cells(device) // max(D, 1))
+    pendings = []
+    for r0 in range(0, max(L, 1), slab_rows):
+        r1 = min(r0 + slab_rows, L)
+        wire = ll_wire_from_numpy(
+            ll_pack[r0:r1],
+            None if ll_mapq is None else np.asarray(ll_mapq)[r0:r1],
+            is_variant[r0:r1], is_standard_alt[r0:r1], ll_qvals, device,
+        )
+        pendings.append(
+            PendingCandidates(
+                _ll_screen_device(wire, max_alleles, margin, min_phred),
+                wire.staged_from,
+            )
+        )
+    return pendings[0] if len(pendings) == 1 else _MergedCandidates(pendings)
+
+
+def _packed_with_min_mapq(tile, min_mapq: int) -> bool:
+    return (getattr(tile, "ll_min_mapq", None) or 0) == min_mapq
+
+
+def germline_screen_launch(
+    tile, min_mapq: int = 0, margin: float = 0.5, min_phred: float = 0.0,
+    *, device: torch.device,
+):
+    """Launch the genotype-likelihood candidate screen for one tile.
+
+    Note: when the tile was packed with fields="likelihood", its allele
+    tables are already MAPQ-filtered natively; the min_mapq here only
+    applies to Python-packed full tiles."""
+    pack8 = getattr(tile, "ll_pack8", None)
+    if pack8 is not None and _packed_with_min_mapq(tile, min_mapq):
+        # Qual-dictionary byte form (native tiles, <= 16 distinct quals):
+        # half the transfer, identical flags.
+        return ll_screen_arrays_launch(
+            np.asarray(pack8), None, tile.is_variant, tile.is_standard_alt,
+            tile.K, margin=margin, min_phred=min_phred,
+            ll_qvals=np.asarray(tile.ll_qvals), device=device,
+        )
+    return ll_screen_arrays_launch(
+        ll_pack_of(tile, min_mapq), None, tile.is_variant,
+        tile.is_standard_alt, tile.K, margin=margin, min_phred=min_phred,
+        device=device,
+    )
+
+
+def tumor_screen_launch(
+    tile, min_mapq: int = 0, margin: float = 0.5, *, device: torch.device
+):
+    """Launch the alignment-included tumor likelihood screen for one tile
+    packed with fields="likelihood_mapq"."""
+    if not _packed_with_min_mapq(tile, min_mapq):
+        raise ValueError(
+            "tile was likelihood-packed with min_mapq=%d but the screen "
+            "requested min_mapq=%d"
+            % (getattr(tile, "ll_min_mapq", None) or 0, min_mapq)
+        )
+    pack8 = getattr(tile, "ll_pack8", None)
+    if pack8 is not None:
+        return ll_screen_arrays_launch(
+            np.asarray(pack8), np.asarray(tile.ll_mapq), tile.is_variant,
+            tile.is_standard_alt, tile.K, margin=margin,
+            ll_qvals=np.asarray(tile.ll_qvals), device=device,
+        )
+    return ll_screen_arrays_launch(
+        np.asarray(tile.ll_pack), np.asarray(tile.ll_mapq), tile.is_variant,
+        tile.is_standard_alt, tile.K, margin=margin, device=device,
+    )
 
 
 # --- tiles -----------------------------------------------------------------
@@ -566,6 +895,19 @@ def prefetch_iter(iterable, ahead: int = 2):
             yield item
     finally:
         stop = True
+
+
+def pipelined(items, launch, max_in_flight: int = 8):
+    """Yield (item, launch(item)) with a bounded window of launches in
+    flight ahead of consumption, so device launches (and their copies back)
+    overlap host-side packing of later items."""
+    in_flight = deque()
+    for item in items:
+        in_flight.append((item, launch(item)))
+        if len(in_flight) > max_in_flight:
+            yield in_flight.popleft()
+    while in_flight:
+        yield in_flight.popleft()
 
 
 def pipelined_screens(

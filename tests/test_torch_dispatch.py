@@ -195,10 +195,9 @@ def test_host_counts_screen_matches_device_screen():
 def _tiles_both_packers():
     """Screen tiles of the same reads from the Python packer (dense tiles,
     no CSR blob) and the native columnar packer (CSR blob + counts)."""
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.loci.lociset import LociSet
-    from guacamole_tpu.runtime.columnar import columnar_from_reads
-    from guacamole_tpu_torch.callers.source import iter_screen_tiles
+    from guacamole_tpu_torch.callers.source import ReadSource
+    from guacamole_tpu_torch.loci.lociset import LociSet
+    from guacamole_tpu_torch.runtime.columnar import columnar_from_reads
     from test_pack import synthetic_reads
 
     reads = sorted(
@@ -213,7 +212,7 @@ def _tiles_both_packers():
     )
     return [
         tile for source in sources
-        for tile in iter_screen_tiles(source, "chr1", loci)
+        for tile in source.iter_tiles("chr1", loci, fields="screen")
     ]
 
 

@@ -57,7 +57,8 @@ def jax_emit_ref(fixture_bam, tmp_path_factory):
 
 def port_cli_run(out_vcf, *args):
     assert port_cli.main(
-        ["germline-threshold", *args, "--out", out_vcf, "--debug"]
+        ["germline-threshold", *args, "--out", out_vcf, "--device", "cpu",
+         "--debug"]
     ) == 0
     return out_vcf
 
