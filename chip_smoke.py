@@ -25,7 +25,13 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     (b) be a superset of an f64 evaluation of the same rule with margin 0
     and no safety band, and (c) be the same from the uint8 and the uint16
     form of one tile. Then one main-path shape (1M rows x D = 32, uint8),
-    timed;
+    timed in the germline form and in the tumor form (with its MAPQ plane).
+    The fused dense kernel stats_ll: K in {2, 8, 15, 16, 20}, D in {8, 15,
+    64, 1024, 16384}, with and without alignment, thresholds None, 0, 8
+    and 50, with and without the likelihood output, all-empty rows, q = 0
+    elements. Integers with tolerance 0; likelihoods within the tolerance
+    stated at STATS_LL_RTOL, with an f64 evaluation as the arbiter. Then
+    one main-path shape (1M rows x D = 32, K = 8), timed;
  4. runs the port's germline-threshold CLI on the 2.37M-read simulated
     fixture (utils/simulate.make_scale_fixture, scale 1.0, seed 2026) with
     device screens, checks that both counting kernels launched, that the
@@ -37,7 +43,18 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     host-screen run's record for record and that planted-SNV recall is
     >= 0.9; then again with --min-likelihood 30 and 40 (the GQ gate on
     the device), where at 40 precision must be >= 0.9 too;
- 6. prints one JSON line of kernel results, then, as the last line,
+ 6. runs the port's somatic-standard CLI (--odds 20) on the fixture's
+    tumor/normal pair with device screens, checks that ll_screen launched
+    and launched its tumor form only, that the VCF equals the host-screen
+    run's record for record, that at least half of the planted somatic
+    SNVs are called and that at most one germline het in 20 is called
+    somatic;
+ 7. runs germline-threshold and somatic-standard once more with
+    GUAC_DENSE_TILES=1 (full per-element tiles), checks that stats_ll
+    launched and no other screen kernel did, and that each VCF equals its
+    default run's; then runs the forward step of guacamole_tpu_torch.entry
+    on its example tile and on the timed shape against the plain version;
+ 8. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -526,6 +543,29 @@ def check_ll_screen(device) -> dict:
     k1 = _time_ms(kfn, 50)
     k2 = _time_ms(kfn, 50)
     p2 = _time_ms(pfn, 3)
+    # The tumor form at the shape somatic-standard ships most: the same
+    # tile with its [L, D] uint8 MAPQ plane.
+    g = torch.Generator(device=device).manual_seed(7)
+    mapq8 = torch.randint(
+        20, 61, pack8.shape, generator=g, device=device).to(torch.uint8)
+    tumor_wire = SimpleNamespace(
+        pack=pack8, flag_words=words, qvals=qvals, mapq=mapq8)
+    tumor_flags, e_tumor = _check_ll_case(
+        ck, plain, tumor_wire, 8, 0.5, 0.0, "main-path tile, tumor form")
+    check(e_tumor <= LL_MAX_BOUNDARY_SHARE * L,
+          f"ll_screen tumor main-path tile: {e_tumor} rows differ at the "
+          "boundary")
+
+    def tkfn():
+        ck.ll_screen(pack8, words, 8, 0.5, 0.0, ll_qvals=qvals, ll_mapq=mapq8)
+
+    def tpfn():
+        plain.ll_screen(pack8, words, 8, 0.5, 0.0, qv, mapq8)
+
+    tp1 = _time_ms(tpfn, 3)
+    tk1 = _time_ms(tkfn, 50)
+    tk2 = _time_ms(tkfn, 50)
+    tp2 = _time_ms(tpfn, 3)
     # The least the card could do: rows with a standard variant allele are
     # read in full (the others cannot be candidates, whatever they hold),
     # every row's flag word is read and its flag written; two f32 adds per
@@ -535,12 +575,21 @@ def check_ll_screen(device) -> dict:
     n_bytes = read_rows * D * pack8.element_size() + L * 4 + L
     n_ops = 2 * int((pack8[has_var] != 0xFF).sum())
     bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
+    tumor_bytes = n_bytes + read_rows * D
+    tumor_bound, tumor_by = _bound_ms(tumor_bytes, n_ops)
+    print(
+        f"ll tile, tumor form (uint8 + MAPQ plane): {int(tumor_flags.sum())} "
+        f"candidates; ll_screen kernel {(tk1 + tk2) / 2:.4f} ms, plain "
+        f"{(tp1 + tp2) / 2:.4f} ms, bound {tumor_bound:.4f} ms ({tumor_by}: "
+        f"{tumor_bytes} bytes, {n_ops} operations)",
+        flush=True,
+    )
     print(
         f"ll tile: {L} rows x D={D} uint8, {read_rows} rows with a standard "
         f"variant allele, {int(flags.sum())} candidates; ll_screen kernel "
         f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} bytes, {n_ops} "
-        f"operations); {excused + e_main} of {rows + L} checked rows "
+        f"operations); {excused + e_main + e_tumor} of {rows + 2 * L} checked rows "
         f"differed from the plain version, all within {LL_REL_TOL:g} of "
         "their boundary",
         flush=True,
@@ -553,11 +602,242 @@ def check_ll_screen(device) -> dict:
             # Flags are 0/1, so the error is 1 as soon as one row differs
             # from the plain version; every such row lies within LL_REL_TOL
             # of its decision boundary, and their count is given beside it.
-            "max_abs_err": float(excused + e_main > 0),
-            "rows_checked": rows + L,
-            "rows_differing_at_boundary": excused + e_main,
+            "max_abs_err": float(excused + e_main + e_tumor > 0),
+            "rows_checked": rows + 2 * L,
+            "rows_differing_at_boundary": excused + e_main + e_tumor,
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "tumor_form_ms": (tk1 + tk2) / 2,
+            "tumor_form_plain_ms": (tp1 + tp2) / 2,
+            "tumor_form_bound_ms": tumor_bound,
+        },
+    }
+
+
+
+# --- phase 3, continued: the fused dense-tile kernel ----------------------
+
+STATS_LL_SOURCE = "guacamole_tpu_torch/ops/csrc/stats_ll.cu"
+# stats_ll against its plain version. Counts, forward counts, depth and
+# flags are integers: tolerance 0. The likelihoods are f32 sums of D terms
+# taken in another order (the kernel sums three terms per allele in lanes
+# and adds them up per pair; the plain version sums one log per element and
+# pair): |kernel - plain| <= LL_ATOL(D) + STATS_LL_RTOL * |plain|, with the
+# JAX tests' rtol = atol = 2e-5 up to D = 16 and an absolute part that grows
+# in proportion to the depth beyond it, since each term added can round the
+# running sum by half an ulp. Where the two disagree by more, an f64
+# evaluation of the plain version is the arbiter and the kernel must lie
+# within the same tolerance of it. Entries that are not finite (q = 0 gives
+# log 0) must be the same infinity in both.
+STATS_LL_RTOL = 2e-5
+
+
+def _stats_ll_atol(D: int) -> float:
+    return 2e-5 * max(1.0, D / 16)
+
+
+def _dense_tile(rng, L, D, K):
+    """A random dense tile as the numpy arrays the dispatch stages: rows of
+    depth 0..D (one row in 16 empty), a row's alleles drawn with an alt
+    share of 0, 1%, 20%, 50% or 100%, a few valid elements that belong to
+    no allele, quals 0..45 with q = 0 and q = 93 among them, MAPQs that
+    include 0."""
+    depth = rng.integers(0, D + 1, size=L)
+    depth[rng.random(L) < 1 / 16] = 0
+    valid = np.arange(D)[None, :] < depth[:, None]
+    alt_share = rng.choice([0.0, 0.01, 0.2, 0.5, 1.0], size=(L, 1))
+    alt = rng.integers(1, K, size=(L, D))
+    aid = np.where(rng.random((L, D)) < alt_share, alt, 0)
+    aid[rng.random((L, D)) < 0.002] = K + 1
+    aid[rng.random((L, D)) < 0.002] = -1
+    aid = np.where(valid, aid, -1).astype(np.int16)
+    qual = rng.integers(0, 46, size=(L, D))
+    qual[rng.random((L, D)) < 0.001] = 93
+    qual = np.where(valid, qual, 0).astype(np.int16)
+    mapq = np.where(
+        valid, rng.choice([0, 10, 37, 60, 254], size=(L, D)), 0
+    ).astype(np.int16)
+    strand = valid & (rng.random((L, D)) < 0.5)
+    is_variant = rng.random((L, K)) < 0.4
+    return aid, qual, mapq, strand, valid, is_variant
+
+
+def _check_stats_ll_case(ck, plain, wire, K, align, thr, with_ll, what, err):
+    """One launch against the plain version; updates err in place."""
+    got = ck.stats_ll(
+        wire.allele_id, wire.qual, wire.mapq, wire.strand, wire.valid,
+        wire.is_variant, K, include_alignment=align, threshold_percent=thr,
+        with_likelihoods=with_ll,
+    )
+    torch.cuda.synchronize()
+    args = (wire.allele_id, wire.qual, wire.mapq, wire.strand, wire.valid,
+            wire.is_variant, K, align, thr, with_ll)
+    want = plain.stats_ll_math(*args)
+    for name in ("counts", "forward_counts", "depth", "candidates"):
+        e = _max_err(getattr(got, name), getattr(want, name))
+        check(e == 0, f"stats_ll {what}: {name} differs from the plain "
+              f"version by {e}")
+    if not with_ll:
+        check(got.log_likelihoods is None, f"stats_ll {what}: unasked output")
+        return
+    k, p = got.log_likelihoods, want.log_likelihoods
+    check(k.shape == p.shape and k.dtype == torch.float32,
+          f"stats_ll {what}: likelihood shape/dtype")
+    check(not bool(torch.isnan(k).any()), f"stats_ll {what}: NaN")
+    finite = torch.isfinite(k) & torch.isfinite(p)
+    check(bool((k[~finite] == p[~finite]).all()),
+          f"stats_ll {what}: infinities differ")
+    D = wire.allele_id.shape[1]
+    tol = _stats_ll_atol(D) + STATS_LL_RTOL * p.abs()
+    diff = torch.where(finite, (k - p).abs(), torch.zeros_like(k))
+    err["abs"] = max(err["abs"], float(diff.max()))
+    err["entries"] += int(finite.sum())
+    over = finite & (diff > tol)
+    if bool(over.any()):
+        exact = plain.stats_ll_math(*args, dtype=torch.float64).log_likelihoods
+        off = (k.double() - exact).abs()
+        bad = over & (off > _stats_ll_atol(D) + STATS_LL_RTOL * exact.abs())
+        err["arbitrated"] += int(over.sum())
+        check(not bool(bad.any()),
+              f"stats_ll {what}: {int(bad.sum())} likelihoods beyond "
+              f"tolerance of both the plain f32 and the f64 evaluation "
+              f"(largest {float(off[bad].max()) if bad.any() else 0:g})")
+
+
+def _main_path_dense_tile(device, L=1 << 20, D=32, K=8, seed=2026):
+    """A main-path dense tile made on the device: 1M rows at about 25x
+    (depth capped at D = 32), allele 0 the reference, errors to alleles
+    1..3 in 1% of reads, one het row in 1500, quals 20..41, MAPQ 60,
+    alleles 1..3 variants."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    depth = torch.poisson(
+        torch.full((L,), 25.0, device=device), generator=g
+    ).clamp_(0, D).to(torch.int32)
+    valid = torch.arange(D, device=device)[None, :] < depth[:, None]
+    u = torch.rand((L, D), generator=g, device=device)
+    alt = torch.randint(1, 4, (L, D), generator=g, device=device)
+    het = torch.rand(L, generator=g, device=device) < 1 / 1500
+    aid = torch.where(het[:, None] & (u < 0.5), 1, torch.where(u < 0.01, alt, 0))
+    aid = torch.where(valid, aid, -1).to(torch.int16)
+    qual = torch.where(
+        valid, torch.randint(20, 42, (L, D), generator=g, device=device), 0
+    ).to(torch.int16)
+    mapq = torch.where(valid, 60, 0).to(torch.int16)
+    strand = valid & (torch.rand((L, D), generator=g, device=device) < 0.5)
+    is_variant = torch.zeros((L, K), dtype=torch.bool, device=device)
+    is_variant[:, 1:4] = True
+    return SimpleNamespace(
+        allele_id=aid, qual=qual, mapq=mapq, strand=strand, valid=valid,
+        is_variant=is_variant,
+    )
+
+
+def check_stats_ll(device) -> dict:
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+    from guacamole_tpu_torch.ops.dispatch import dense_wire_from_numpy
+
+    rng = np.random.default_rng(2026)
+    err = {"abs": 0.0, "entries": 0, "arbitrated": 0}
+    thresholds = (None, 0, 8, 50)
+    launches = 0
+    for K in (2, 8, 15, 16):
+        for D, L in ((8, 8192), (15, 4096), (64, 4096), (1024, 512),
+                     (16384, 64)):
+            wire = dense_wire_from_numpy(
+                *_dense_tile(rng, L, D, K), device=device)
+            for a, align in enumerate((False, True)):
+                for i, thr in enumerate(thresholds):
+                    what = f"K={K} D={D} alignment={align} threshold={thr}"
+                    # Every threshold without likelihoods; with them, two
+                    # thresholds per case (all four over the two modes).
+                    _check_stats_ll_case(
+                        ck, plain, wire, K, align, thr, False, what, err)
+                    if i % 2 == a:
+                        _check_stats_ll_case(
+                            ck, plain, wire, K, align, thr, True, what, err)
+                        launches += 1
+                    launches += 1
+    # More alleles than the two register budgets: the row is walked once
+    # per 16 alleles.
+    wire = dense_wire_from_numpy(*_dense_tile(rng, 512, 64, 20), device=device)
+    _check_stats_ll_case(ck, plain, wire, 20, True, 8, True, "K=20 D=64", err)
+    # A tile of nothing but empty slots, and an empty tile.
+    blank = dense_wire_from_numpy(
+        np.full((300, 32), -1, np.int16), np.zeros((300, 32), np.int16),
+        np.zeros((300, 32), np.int16), np.zeros((300, 32), bool),
+        np.zeros((300, 32), bool), np.ones((300, 8), bool), device=device)
+    out = ck.stats_ll(blank.allele_id, blank.qual, blank.mapq, blank.strand,
+                      blank.valid, blank.is_variant, 8, threshold_percent=0)
+    check(not bool(out.candidates.any()) and not bool(out.depth.any())
+          and not bool(out.counts.any())
+          and bool((out.log_likelihoods == 0).all()),
+          "stats_ll on all-empty rows: expected depth 0, no candidate and "
+          "likelihoods 0")
+    none = ck.stats_ll(blank.allele_id[:0], blank.qual[:0], blank.mapq[:0],
+                       blank.strand[:0], blank.valid[:0],
+                       blank.is_variant[:0], 8)
+    check(none.log_likelihoods.shape == (0, 36), "stats_ll on an empty tile")
+    # The main-path shape, timed: the forward step's call (likelihoods, no
+    # alignment, no threshold), and the screens' call (no likelihoods).
+    tile = _main_path_dense_tile(device)
+    L, D = tile.allele_id.shape
+    K = tile.is_variant.shape[1]
+    P = K * (K + 1) // 2
+    _check_stats_ll_case(
+        ck, plain, tile, K, False, None, True, "main-path tile", err)
+    _check_stats_ll_case(
+        ck, plain, tile, K, False, 25, False, "main-path tile, screen", err)
+
+    def call(fn, with_ll):
+        return lambda: fn(
+            tile.allele_id, tile.qual, tile.mapq, tile.strand, tile.valid,
+            tile.is_variant, K, False, None, with_ll)
+
+    p1 = _time_ms(call(plain.stats_ll_math, True), 3)
+    k1 = _time_ms(call(ck.stats_ll, True), 50)
+    s1 = _time_ms(call(ck.stats_ll, False), 50)
+    k2 = _time_ms(call(ck.stats_ll, True), 50)
+    p2 = _time_ms(call(plain.stats_ll_math, True), 3)
+    ps = _time_ms(call(plain.stats_ll_math, False), 3)
+    n_valid = int(tile.valid.sum())
+    # Bytes: allele_id, qual (int16), strand, valid (1 B) per slot; mapq is
+    # not needed without alignment; is_variant; the five outputs.
+    n_bytes = L * D * 6 + L * K + L * (8 * K + 5 + 4 * P)
+    # Operations of this design: per valid element 1 subtraction, 3 sums and
+    # 3 logs for the terms, 3 f32 and 3 integer additions; per row and pair
+    # K additions.
+    n_ops = n_valid * 13 + L * P * K
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
+    screen_bytes = L * D * 4 + L * K + L * (8 * K + 5)
+    screen_bound, screen_by = _bound_ms(screen_bytes, n_valid * 3)
+    print(
+        f"dense tile: {L} rows x D={D}, K={K}, {n_valid} valid elements; "
+        f"stats_ll kernel {(k1 + k2) / 2:.4f} ms, plain "
+        f"{(p1 + p2) / 2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{n_bytes} bytes, {n_ops} operations); without likelihoods (the "
+        f"screens' call) kernel {s1:.4f} ms, plain {ps:.4f} ms, bound "
+        f"{screen_bound:.4f} ms ({screen_by}: {screen_bytes} bytes); "
+        f"integers equal to the plain version in {launches + 4} launches; "
+        f"likelihoods: largest |kernel - plain| {err['abs']:.3g} over "
+        f"{err['entries']} finite entries, tolerance "
+        f"{STATS_LL_RTOL:g} * |x| + 2e-5 * max(1, D/16), "
+        f"{err['arbitrated']} entries taken to the f64 arbiter",
+        flush=True,
+    )
+    return {
+        "stats_ll": {
+            "name": "stats_ll", "route": "cuda", "source": STATS_LL_SOURCE,
+            "replaces": "guacamole_tpu/ops/pallas_kernels.py:31",
+            "launches": 0, "max_abs_err": err["abs"],
+            "entries_checked": err["entries"],
+            "entries_arbitrated_in_f64": err["arbitrated"],
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms_without_likelihoods": s1,
+            # No single PyTorch call computes counts, flags and pair
+            # likelihoods of a tile.
+            "library_ms": None,
         },
     }
 
@@ -619,9 +899,13 @@ def _check_equal_vcfs(a, b):
     return cmp.matching
 
 
-def _main_path_run(command, argv, kernels, kernel_records):
+def _main_path_run(command, argv, kernels, kernel_records,
+                   record_as="launches"):
     """One run of a main path with device screens, the launch counts and
-    transfer counters set to 0 just before it and read just after."""
+    transfer counters set to 0 just before it and read just after. The
+    counts of `kernels` must be above 0 and go into their records under
+    `record_as` (a kernel that several paths launch keeps its first path's
+    count under "launches" and the others beside it)."""
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import dispatch
 
@@ -634,7 +918,8 @@ def _main_path_run(command, argv, kernels, kernel_records):
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {command} path")
-        kernel_records[name]["launches"] = launches[name]
+        if name in kernel_records:  # absent when its check was not run
+            kernel_records[name][record_as] = launches[name]
     return wall, launches, transfers
 
 
@@ -776,6 +1061,169 @@ def run_standard_slice(kernel_records: dict, manifest, out) -> None:
         )
 
 
+def run_somatic_slice(kernel_records: dict, manifest, out) -> None:
+    """somatic-standard on the full tumor/normal pair: device screens (the
+    tumor form of ll_screen on the card, f32 with the MAPQ plane) against
+    host screens (the native packer's f64 tumor rule). The calls after the
+    exact f64 confirm must be equal."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import dispatch
+
+    command = "somatic-standard"
+    args = [
+        "--tumor-reads",
+        os.path.join(FIXTURE_DIR, manifest["files"]["tumor_bam"]),
+        "--normal-reads",
+        os.path.join(FIXTURE_DIR, manifest["files"]["normal_bam"]),
+        "--odds", "20",
+    ]
+    reads = manifest["counts"]["tumor"] + manifest["counts"]["normal"]
+
+    def vcf(name):
+        return os.path.join(out, name)
+
+    wall, launches, transfers = _main_path_run(
+        command, args + ["--out", vcf("som_device.vcf")], ("ll_screen",),
+        kernel_records, record_as="launches_somatic_standard",
+    )
+    forms = dict(ck.LL_FORM_LAUNCHES)
+    tumor_launches = forms["tumor_u8"] + forms["tumor_u16"]
+    check(tumor_launches == launches["ll_screen"] and tumor_launches > 0,
+          f"somatic-standard must launch the tumor forms of ll_screen only, "
+          f"got {forms}")
+    host_wall = _run_cli(
+        command, args + ["--out", vcf("som_host.vcf")], host_screen=True)
+    # Once more on the device, now also counting the valid elements staged.
+    dispatch.reset_transfer_stats()
+    os.environ["GUAC_TRANSFER_STATS"] = "1"
+    try:
+        device_wall = _run_cli(
+            command, args + ["--out", vcf("som_device1.vcf")],
+            host_screen=False)
+    finally:
+        del os.environ["GUAC_TRANSFER_STATS"]
+    counted = dict(dispatch.TRANSFER_STATS)
+    check(counted["h2d_bytes"] == transfers["h2d_bytes"],
+          "two device runs staged different byte counts")
+    matching = _check_equal_vcfs(vcf("som_device.vcf"), vcf("som_host.vcf"))
+    _check_equal_vcfs(vcf("som_device.vcf"), vcf("som_device1.vcf"))
+    # The gates of tests/test_simulate.py: the planted somatic SNVs are
+    # found; germline hets (in the normal too) are not called somatic.
+    called = {
+        pos for contig, pos in _snv_sites(vcf("som_device.vcf"))[0]
+        if contig == "deep1m"
+    }
+    somatic = set(manifest["truth"]["deep1m"]["somatic_pos"])
+    germline = set(manifest["truth"]["deep1m"]["snv_pos"])
+    check(len(somatic) > 0, "the fixture plants no somatic sites")
+    recall = len(called & somatic) / len(somatic)
+    miscalled = len(called & germline)
+    check(recall >= 0.5, f"somatic recall {recall:.4f}")
+    check(miscalled <= max(2, len(germline) // 20),
+          f"{miscalled} of {len(germline)} germline hets called somatic")
+    per_element = counted["h2d_bytes"] / max(1, counted["ll_elements"])
+    print(
+        f"slice: somatic-standard --odds 20: {matching} records, device "
+        f"screens {wall:.3f} s wall ({reads / wall:.1f} reads/s); then host "
+        f"{host_wall:.3f} s, device {device_wall:.3f} s; launches "
+        f"{launches}, by form {forms}; transfers {transfers} "
+        f"({per_element:.4f} H2D bytes per valid tumor element, "
+        f"{counted['ll_elements']} elements in {counted['ll_cells']} staged "
+        f"slots); somatic recall {recall:.4f} "
+        f"({len(called & somatic)}/{len(somatic)}), {miscalled} of "
+        f"{len(germline)} germline hets called somatic; equal to host "
+        f"screens",
+        flush=True,
+    )
+
+
+def run_dense_slice(kernel_records: dict, manifest, out, device) -> None:
+    """GUAC_DENSE_TILES=1: full per-element tiles through the fused dense
+    kernel stats_ll, for germline-threshold and somatic-standard on the
+    full fixtures; each VCF must equal its default run's. Then the forward
+    step of guacamole_tpu_torch.entry."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
+    def vcf(name):
+        return os.path.join(out, name)
+
+    files = manifest["files"]
+    paths = (
+        ("germline-threshold",
+         ["--reads", os.path.join(FIXTURE_DIR, files["germline_bam"]),
+          "--threshold", "25"],
+         "device.vcf", "dense_threshold.vcf", "launches"),
+        ("somatic-standard",
+         ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
+          "--normal-reads", os.path.join(FIXTURE_DIR, files["normal_bam"]),
+          "--odds", "20"],
+         "som_device.vcf", "dense_somatic.vcf",
+         "launches_somatic_standard"),
+    )
+    for command, args, default_vcf, dense_vcf, record_as in paths:
+        default_wall = None
+        if not os.path.exists(vcf(default_vcf)):  # its own phase was not run
+            default_wall = _run_cli(
+                command, args + ["--out", vcf(default_vcf)],
+                host_screen=False)
+        os.environ["GUAC_DENSE_TILES"] = "1"
+        try:
+            wall, launches, transfers = _main_path_run(
+                command, args + ["--out", vcf(dense_vcf)], ("stats_ll",),
+                kernel_records, record_as=record_as,
+            )
+        finally:
+            del os.environ["GUAC_DENSE_TILES"]
+        others = {k: v for k, v in launches.items() if k != "stats_ll" and v}
+        check(not others,
+              f"dense {command}: other screen kernels launched: {others}")
+        matching = _check_equal_vcfs(vcf(dense_vcf), vcf(default_vcf))
+        print(
+            f"slice: dense tiles, {command}: {matching} records equal to "
+            f"the default run, {wall:.3f} s wall"
+            + (f" (default run just before: {default_wall:.3f} s)"
+               if default_wall is not None else "")
+            + f"; launches {launches}; transfers {transfers} "
+            f"({transfers['h2d_bytes'] / max(1, transfers['dense_cells']):.4f}"
+            f" H2D bytes per staged slot)",
+            flush=True,
+        )
+    # The forward step, on its example tile and on the timed shape.
+    from guacamole_tpu_torch.entry import entry
+
+    forward, example = entry()
+    tile = _main_path_dense_tile(device)
+    big = (tile.allele_id, tile.qual, tile.mapq, tile.strand, tile.valid,
+           tile.is_variant)
+    before = ck.LAUNCHES["stats_ll"]
+    for what, planes in (("example tile", example), ("timed shape", big)):
+        counts, candidates, ll = forward(*planes)
+        torch.cuda.synchronize()
+        on_device = tuple(
+            p if isinstance(p, torch.Tensor) else torch.from_numpy(p).to(device)
+            for p in planes
+        )
+        want = plain.stats_ll_math(*on_device, 8)
+        check(counts.device.type == "cuda" and
+              _max_err(counts, want.counts) == 0 and
+              _max_err(candidates, want.candidates) == 0,
+              f"entry() on its {what}: counts or candidates differ")
+        check(ll.shape == want.log_likelihoods.shape and
+              bool(torch.isfinite(ll).all()),
+              f"entry() on its {what}: likelihoods not finite")
+        D = planes[0].shape[1]
+        off = (ll - want.log_likelihoods).abs()
+        tol = _stats_ll_atol(D) + STATS_LL_RTOL * want.log_likelihoods.abs()
+        check(bool((off <= tol).all()),
+              f"entry() on its {what}: likelihoods differ by {float(off.max()):g}")
+        print(f"entry(): {what} {tuple(planes[0].shape)}: counts and "
+              f"candidates equal to the plain version, likelihoods within "
+              f"{float(off.max()):.3g}", flush=True)
+    check(ck.LAUNCHES["stats_ll"] == before + 2,
+          "entry() did not launch stats_ll once per call")
+
+
 def _loaded_forbidden():
     return sorted(
         m for m, mod in sys.modules.items()
@@ -786,23 +1234,34 @@ def _loaded_forbidden():
     )
 
 
-def profile_standard(manifest, out) -> None:
-    """Not part of the default run: one more germline-standard run with
-    device screens under torch.profiler (device activity only), to say how
-    long the card was busy and with what."""
+def profile_callers(manifest, out) -> None:
+    """Not part of the default run: one more germline-standard and one more
+    somatic-standard run with device screens under torch.profiler, to say
+    how long the card was busy and with what."""
+    files = manifest["files"]
+    _profile_run(
+        "germline-standard",
+        ["--reads", os.path.join(FIXTURE_DIR, files["germline_bam"])], out)
+    _profile_run(
+        "somatic-standard",
+        ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
+         "--normal-reads", os.path.join(FIXTURE_DIR, files["normal_bam"]),
+         "--odds", "20"],
+        out)
+
+
+def _profile_run(command, args, out) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    bam = os.path.join(FIXTURE_DIR, manifest["files"]["germline_bam"])
     def argv(name):
-        return ["--reads", bam, "--out", os.path.join(out, name)]
+        return [*args, "--out", os.path.join(out, f"{command}_{name}")]
 
-    _run_cli("germline-standard", argv("warm.vcf"), host_screen=False)
+    _run_cli(command, argv("warm.vcf"), host_screen=False)
     with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ) as prof:
-        wall = _run_cli(
-            "germline-standard", argv("profiled.vcf"), host_screen=False)
+        wall = _run_cli(command, argv("profiled.vcf"), host_screen=False)
         torch.cuda.synchronize()
     on_device, on_host = {}, {}
     for e in prof.events():
@@ -826,7 +1285,7 @@ def profile_standard(manifest, out) -> None:
         )
 
     print(
-        f"profile: germline-standard with device screens, {wall:.3f} s wall "
+        f"profile: {command} with device screens, {wall:.3f} s wall "
         f"under the profiler, device busy {busy_ms:.3f} ms (idle share "
         f"{1 - busy_ms / 1e3 / wall:.4%}); on the device: {top(on_device)}; "
         f"PyTorch and CUDA runtime calls on the host, self time: "
@@ -835,8 +1294,8 @@ def profile_standard(manifest, out) -> None:
     )
 
 
-PHASES = ("build", "kernels", "threshold", "standard")
-EXTRA_PHASES = ("profile",)
+PHASES = ("build", "kernels", "threshold", "standard", "somatic", "dense")
+EXTRA_PHASES = ("profile", "stats_ll")
 
 
 def main(argv) -> int:
@@ -856,15 +1315,21 @@ def main(argv) -> int:
     if "kernels" in phases:
         records.update(check_kernels(device))
         records.update(check_ll_screen(device))
-    if set(phases) & {"threshold", "standard", "profile"}:
+    if set(phases) & {"kernels", "stats_ll"}:
+        records.update(check_stats_ll(device))
+    if set(phases) & {"threshold", "standard", "somatic", "dense", "profile"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
             run_threshold_slice(records, manifest, out)
         if "standard" in phases:
             run_standard_slice(records, manifest, out)
+        if "somatic" in phases:
+            run_somatic_slice(records, manifest, out)
+        if "dense" in phases:
+            run_dense_slice(records, manifest, out, device)
         if "profile" in phases:
-            profile_standard(manifest, out)
+            profile_callers(manifest, out)
     torch.cuda.synchronize()
     check(not _loaded_forbidden(),
           f"modules of jax or of the JAX package were imported: "

@@ -266,9 +266,11 @@ def call_variants(
     from guacamole_tpu_torch.ops.dispatch import (
         PendingCandidates,
         candidates_of,
+        dense_tiles,
         germline_screen_launch,
         pipelined,
         screen_on_host,
+        screen_tile_launch,
     )
 
     # Host screen (the CPU, or GUAC_HOST_SCREEN=1): the native packer
@@ -312,6 +314,17 @@ def call_variants(
             return None
         if getattr(tile, "ll_candidates", None) is not None:
             return PendingCandidates(np.asarray(tile.ll_candidates))
+        if dense_tiles() or tile.K > 15:
+            # Full per-element tiles (the dense switch, or more alleles
+            # than the compact encodings hold): the dense counting screen
+            # over MAPQ-filtered elements, as in the JAX package — any
+            # variant evidence is a candidate.
+            return screen_tile_launch(
+                tile.allele_id, tile.qual, tile.mapq, tile.strand,
+                np.asarray(tile.valid)
+                & (np.asarray(tile.mapq) >= min_alignment_quality),
+                tile.is_variant, tile.K, device=device,
+            )
         # Device genotype-likelihood screen: candidates are loci whose
         # best variant genotype comes within a safety margin of the
         # best reference genotype — a strict superset of exact-argmax
@@ -323,7 +336,7 @@ def call_variants(
         # A Python-packed full tile has no native ll_pack: its uint16
         # form is packed from the per-element tensors (ll_pack_of, with
         # the MAPQ filter) and takes the same screen, where the JAX
-        # package runs a dense counting screen.
+        # package runs the counting screen above.
         return germline_screen_launch(
             tile, min_mapq=min_alignment_quality,
             min_phred=float(prefilter_min_likelihood), device=device,

@@ -1,10 +1,10 @@
 """Command-line interface of the port: `guacamole-torch`.
 
-Ports the germline-threshold, germline-standard and index commands of
-guacamole_tpu/cli.py onto the PyTorch device layer, with the same flags
-and output. The other callers, the device mesh and the multi-process
-runtime are not ported yet: their flags are accepted and refused with a
-one-line error. Every command that touches a device runs on the GPU
+Ports the germline-threshold, germline-standard, somatic-standard and
+index commands of guacamole_tpu/cli.py onto the PyTorch device layer, with
+the same flags and output. The other callers, the device mesh and the
+multi-process runtime are not ported yet: their flags are accepted and
+refused with a one-line error. Every command that touches a device runs on the GPU
 unless --device cpu asks for the CPU.
 
     python -m guacamole_tpu_torch.cli germline-threshold --reads x.bam --out x.vcf
@@ -41,6 +41,10 @@ def _add_loci_args(p: argparse.ArgumentParser) -> None:
 
 def _add_reads_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--reads", required=True, help="Aligned reads (BAM/SAM)")
+    _add_read_loading_args(p)
+
+
+def _add_read_loading_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--no-sequence-dictionary",
         action="store_true",
@@ -59,6 +63,12 @@ def _add_reads_args(p: argparse.ArgumentParser) -> None:
         action="store_true",
         help="Recompute MD tags from the reference fasta",
     )
+
+
+def _add_tumor_normal_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tumor-reads", required=True, help="Aligned tumor reads")
+    p.add_argument("--normal-reads", required=True, help="Aligned normal reads")
+    _add_read_loading_args(p)
 
 
 def _add_concordance_args(p: argparse.ArgumentParser) -> None:
@@ -395,27 +405,37 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     return 0
 
 
+# What the callers that bring their own `main` take from this module.
+ARG_HELPERS = {
+    "base": _add_base_args,
+    "loci": _add_loci_args,
+    "reads": _add_reads_args,
+    "tumor_normal": _add_tumor_normal_args,
+    "output": _add_output_args,
+    "distributed": _add_distributed_args,
+    "device": _add_device_args,
+    "concordance": _add_concordance_args,
+    "refuse_unported": _refuse_unported,
+    "resolve_device": _resolve_device,
+    "partition": _partition,
+    "streaming_partitions": _streaming_partitions,
+    "streaming_eligible": _streaming_eligible,
+    "print_concordance": _print_concordance,
+}
+
+
 def cmd_germline_standard(argv: List[str]) -> int:
     from guacamole_tpu_torch.callers.germline_standard import main as run
 
-    rc = run(
-        argv,
-        {
-            "base": _add_base_args,
-            "loci": _add_loci_args,
-            "reads": _add_reads_args,
-            "output": _add_output_args,
-            "distributed": _add_distributed_args,
-            "device": _add_device_args,
-            "concordance": _add_concordance_args,
-            "refuse_unported": _refuse_unported,
-            "resolve_device": _resolve_device,
-            "partition": _partition,
-            "streaming_partitions": _streaming_partitions,
-            "streaming_eligible": _streaming_eligible,
-            "print_concordance": _print_concordance,
-        },
-    )
+    rc = run(argv, ARG_HELPERS)
+    DelayedMessages.default.print()
+    return rc
+
+
+def cmd_somatic_standard(argv: List[str]) -> int:
+    from guacamole_tpu_torch.callers.somatic_standard import main as run
+
+    rc = run(argv, ARG_HELPERS)
     DelayedMessages.default.print()
     return rc
 
@@ -447,6 +467,10 @@ COMMANDS = {
     "germline-standard": (
         cmd_germline_standard,
         "call variants using a simple quality-based probability",
+    ),
+    "somatic-standard": (
+        cmd_somatic_standard,
+        "call somatic variants using independent callers on tumor and normal",
     ),
     "index": (
         cmd_index,

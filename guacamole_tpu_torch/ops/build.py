@@ -25,7 +25,7 @@ from typing import List, NamedTuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("csr_screen.cu", "ll_screen.cu")
+SOURCES = ("csr_screen.cu", "ll_screen.cu", "stats_ll.cu")
 # No --use_fast_math: the likelihood screen's flags come out of f32
 # comparisons and need the precise powf/logf/expf.
 NVCC_FLAGS = (
@@ -105,6 +105,7 @@ def load_kernels() -> SimpleNamespace:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
     )
     csr, ll = libs["csr_screen.cu"], libs["ll_screen.cu"]
+    stats = libs["stats_ll.cu"]
     csr.guac_csr_count_screen.argtypes = [
         ptr, ptr, ptr, i64, i32, i32, ptr, ptr, ptr,
     ]
@@ -115,8 +116,14 @@ def load_kernels() -> SimpleNamespace:
         ptr, i32, ptr, ptr, i32, ptr, i64, i64, i32, f32, f32, ptr, ptr,
     ]
     ll.guac_ll_screen.restype = i32
+    stats.guac_stats_ll.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, ptr,
+    ]
+    stats.guac_stats_ll.restype = i32
     return SimpleNamespace(
         guac_csr_count_screen=csr.guac_csr_count_screen,
         guac_csr_compact=csr.guac_csr_compact,
         guac_ll_screen=ll.guac_ll_screen,
+        guac_stats_ll=stats.guac_stats_ll,
     )

@@ -2,8 +2,9 @@
 
 Port of guacamole_tpu/ops/pallas_kernels.py:247-367 (_lane_cumsum,
 _csr_prefix_kernel, pallas_csr_screen), the compaction that the JAX
-package left to XLA (kernels.py::tile_stats_csr_compact), and
-pallas_kernels.py:370-579 (_ll_screen_kernel, pallas_likelihood_screen).
+package left to XLA (kernels.py::tile_stats_csr_compact),
+pallas_kernels.py:370-579 (_ll_screen_kernel, pallas_likelihood_screen) and
+pallas_kernels.py:31-234 (_stats_ll_kernel, fused_tile_stats_ll).
 
 A tensor on the CPU takes the kernel's plain twin in ops/kernels.py. A
 tensor on a CUDA device launches the kernel, on the current stream, or
@@ -23,12 +24,20 @@ import torch
 from guacamole_tpu_torch.ops import kernels
 from guacamole_tpu_torch.ops.build import load_kernels
 
-LAUNCHES = {"csr_count_screen": 0, "csr_compact": 0, "ll_screen": 0}
+LAUNCHES = {
+    "csr_count_screen": 0, "csr_compact": 0, "ll_screen": 0, "stats_ll": 0,
+}
+# The launches of ll_screen by form: germline or tumor (a MAPQ plane), uint16
+# or uint8 (a qual dictionary). They add up to LAUNCHES["ll_screen"].
+LL_FORM_LAUNCHES = {
+    "germline_u16": 0, "germline_u8": 0, "tumor_u16": 0, "tumor_u8": 0,
+}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for table in (LAUNCHES, LL_FORM_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -136,7 +145,6 @@ def csr_compact(
     return out
 
 
-
 def ll_screen(
     ll_pack: torch.Tensor,  # [L, D] uint16, or uint8 with ll_qvals
     flag_words: torch.Tensor,  # [L] int32 holding the uint32 flag words
@@ -209,4 +217,96 @@ def ll_screen(
         )
     _raise_on(rc, "ll_screen")
     LAUNCHES["ll_screen"] += 1
+    LL_FORM_LAUNCHES[
+        ("germline" if ll_mapq is None else "tumor")
+        + ("_u16" if qvals is None else "_u8")
+    ] += 1
     return out
+
+
+# The most alleles the stats_ll kernel takes (its per-row sums of 3K + 1
+# floats lie in shared memory).
+MAX_DENSE_ALLELES = 256
+
+
+def stats_ll(
+    allele_id: torch.Tensor,  # [L, D] int16, outside 0..K-1 = no allele
+    qual: Optional[torch.Tensor],  # [L, D] int16; None without likelihoods
+    mapq: Optional[torch.Tensor],  # [L, D] int16; None without alignment
+    strand: torch.Tensor,  # [L, D] bool
+    valid: torch.Tensor,  # [L, D] bool
+    is_variant: torch.Tensor,  # [L, K] bool
+    max_alleles: int,
+    include_alignment: bool = False,
+    threshold_percent: Optional[int] = None,
+    with_likelihoods: bool = True,
+) -> kernels.TileStatsLL:
+    """One pass over a dense tile in its own types: allele counts and
+    forward-strand counts ([L, K] int32), depth ([L] int32), the candidate
+    flag ([L] bool; any variant allele with an element, or the exact
+    threshold rule) and, unless with_likelihoods is False, the
+    log-likelihood of all K(K+1)/2 diploid genotypes ([L, P] f32). The
+    contract of fused_tile_stats_ll and of kernels.stats_ll_math. Without
+    likelihoods qual and mapq are not read and may be None; mapq is read
+    only with include_alignment."""
+    _check(allele_id, "allele_id", torch.int16, 2)
+    L, D = allele_id.shape
+    planes = [("strand", strand, torch.bool), ("valid", valid, torch.bool)]
+    if with_likelihoods:
+        planes.append(("qual", qual, torch.int16))
+        if include_alignment:
+            planes.append(("mapq", mapq, torch.int16))
+    for name, t, dtype in planes:
+        if t is None:
+            raise ValueError(f"{name} is needed here and was not given")
+        _check(t, name, dtype, 2)
+        if t.shape != allele_id.shape:
+            raise ValueError(
+                f"{name} {tuple(t.shape)} != allele_id {tuple(allele_id.shape)}"
+            )
+    _check(is_variant, "is_variant", torch.bool, 2)
+    K = int(max_alleles)
+    if not 1 <= K <= MAX_DENSE_ALLELES:
+        raise ValueError(
+            f"stats_ll takes 1..{MAX_DENSE_ALLELES} alleles, got {K}"
+        )
+    if tuple(is_variant.shape) != (L, K):
+        raise ValueError(
+            f"is_variant {tuple(is_variant.shape)}: expected ({L}, {K})"
+        )
+    if D < 1:
+        raise ValueError("a dense tile needs at least one depth slot")
+    if threshold_percent is not None and threshold_percent < 0:
+        raise ValueError(f"threshold_percent must be >= 0, got {threshold_percent}")
+    dev = _device_of(allele_id, is_variant, *(t for _n, t, _d in planes))
+    if dev.type == "cpu":
+        return kernels.stats_ll_math(
+            allele_id, qual, mapq, strand, valid, is_variant, K,
+            include_alignment, threshold_percent, with_likelihoods,
+        )
+    counts = torch.empty((L, K), dtype=torch.int32, device=dev)
+    fwd = torch.empty((L, K), dtype=torch.int32, device=dev)
+    depth = torch.empty(L, dtype=torch.int32, device=dev)
+    cand = torch.empty(L, dtype=torch.bool, device=dev)
+    ll = (
+        torch.empty((L, K * (K + 1) // 2), dtype=torch.float32, device=dev)
+        if with_likelihoods else None
+    )
+    if L == 0:
+        return kernels.TileStatsLL(counts, fwd, depth, cand, ll)
+    lib = load_kernels()
+    with torch.cuda.device(dev):
+        rc = lib.guac_stats_ll(
+            allele_id.data_ptr(),
+            qual.data_ptr() if with_likelihoods else None,
+            mapq.data_ptr() if with_likelihoods and include_alignment else None,
+            strand.data_ptr(), valid.data_ptr(), is_variant.data_ptr(),
+            L, D, K, int(bool(include_alignment)),
+            -1 if threshold_percent is None else int(threshold_percent),
+            counts.data_ptr(), fwd.data_ptr(), depth.data_ptr(),
+            cand.data_ptr(), None if ll is None else ll.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(rc, "stats_ll")
+    LAUNCHES["stats_ll"] += 1
+    return kernels.TileStatsLL(counts, fwd, depth, cand, ll)

@@ -1,4 +1,5 @@
-"""Plain PyTorch forms of the counting-screen and likelihood-screen math.
+"""Plain PyTorch forms of the counting-screen, likelihood-screen and
+dense-tile math.
 
 Ports guacamole_tpu/ops/kernels.py:143-259 (counts_candidates,
 csr_screen_math, tile_stats_csr, tile_stats_csr_compact) and the row-
@@ -19,6 +20,10 @@ tumor_screen_math[8]) are f32 on any device, the plain versions of the
 ll_screen CUDA kernel. Their flags come from f32 sums and so are not
 integers underneath: they are held to the JAX flags on pinned seeds and to
 the superset-of-f64 contract, not to bit-equality on every input.
+
+The dense-tile forms at the end (guacamole_tpu/ops/kernels.py:44-140,
+574-609, and the plain version of the fused stats_ll kernel) work on full
+per-element [L, D] planes.
 """
 
 from __future__ import annotations
@@ -506,3 +511,203 @@ def ll_screen(
         c, g, is_variant, is_standard_alt, max_alleles, margin,
         0.0 if ll_mapq is not None else min_phred,
     ) & any_valid
+
+
+# --- dense tiles -------------------------------------------------------------
+#
+# The per-element [L, D] forms (guacamole_tpu/ops/kernels.py:44-140, 574-609):
+# counting, per-element correctness and the genotype log-likelihoods over all
+# K(K+1)/2 pairs, and stats_ll_math, the plain version of the stats_ll CUDA
+# kernel (guacamole_tpu/ops/pallas_kernels.py::_stats_ll_kernel). f32 unless
+# a dtype is asked for; they run where their inputs lie.
+
+LOG2 = float(np.log(2.0))
+
+
+def phred_to_success(phred: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return 1.0 - torch.pow(10.0, phred.to(dtype) / -10.0)
+
+
+def allele_counts(
+    allele_id: torch.Tensor,  # [L, D] int
+    strand: torch.Tensor,  # [L, D] bool
+    valid: torch.Tensor,  # [L, D] bool
+    max_alleles: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-locus allele counts and forward-strand counts: [L, K] int32. One
+    masked row sum per allele, so the temporaries stay [L, D] (the JAX form
+    sums a [L, D, K] one-hot)."""
+    counts, fwd = [], []
+    for k in range(max_alleles):
+        hit = (allele_id == k) & valid
+        counts.append(hit.sum(dim=1, dtype=torch.int32))
+        fwd.append((hit & strand).sum(dim=1, dtype=torch.int32))
+    return torch.stack(counts, dim=1), torch.stack(fwd, dim=1)
+
+
+def probability_correct(
+    qual: torch.Tensor,  # [L, D] int
+    mapq: torch.Tensor,  # [L, D] int
+    valid: torch.Tensor,  # [L, D] bool
+    include_alignment: bool = False,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """P(sequenced bases correct) per element, 0 outside valid slots."""
+    pc = phred_to_success(qual, dtype)
+    if include_alignment:
+        pc = pc * phred_to_success(mapq, dtype)
+    return torch.where(valid, pc, pc.new_zeros(()))
+
+
+def genotype_log_likelihoods(
+    allele_id: torch.Tensor,  # [L, D] int
+    pc: torch.Tensor,  # [L, D] probability-correct
+    valid: torch.Tensor,  # [L, D] bool
+    max_alleles: int,
+) -> torch.Tensor:
+    """log L(g) for all K(K+1)/2 diploid genotypes per locus: [L, P], in
+    the dtype of pc.
+
+    log L(i,j) = sum_d log(p(i,d) + p(j,d)) - depth * log 2
+    with p(a,d) = pc(d) if element d carries allele a else 1 - pc(d). One
+    [L, D] pass per pair, where the JAX form builds [L, D, P]."""
+    i_idx, j_idx = genotype_pairs(max_alleles)
+    one_minus = 1.0 - pc
+    p_allele = [
+        torch.where(allele_id == k, pc, one_minus) for k in range(max_alleles)
+    ]
+    zero = pc.new_zeros(())
+    depth = valid.sum(dim=1).to(pc.dtype)
+    out = [
+        torch.where(
+            valid, torch.log(p_allele[int(i)] + p_allele[int(j)]), zero
+        ).sum(dim=1)
+        for i, j in zip(i_idx, j_idx)
+    ]
+    return torch.stack(out, dim=1) - depth[:, None] * LOG2
+
+
+class PackedScreen(NamedTuple):
+    counts: torch.Tensor  # [L, K] allele counts (int32)
+    candidates: torch.Tensor  # [L] bool
+
+
+def tile_stats_nibble(
+    packed: torch.Tensor,  # [L, ceil(D/2)] uint8, two 4-bit allele ids/byte
+    is_variant: torch.Tensor,  # [L, K] bool
+    max_alleles: int,
+    threshold_percent: Optional[int] = None,
+) -> PackedScreen:
+    """Counting + candidate screen over nibble-packed allele ids (0xF =
+    empty slot; low nibble = even depth slot, high nibble = odd). The same
+    counts and the same candidate rule as tile_stats on the unpacked
+    arrays. The dispatch reads such rows as CSR rows of equal length into
+    csr_count_screen; this is the form they are held against."""
+    check_alleles(max_alleles)
+    b = packed.to(torch.int32)
+    lo, hi = b & 0xF, b >> 4
+    counts = torch.stack(
+        [
+            (lo == k).sum(dim=1, dtype=torch.int32)
+            + (hi == k).sum(dim=1, dtype=torch.int32)
+            for k in range(max_alleles)
+        ],
+        dim=1,
+    )
+    depth = (lo != 0xF).sum(dim=1, dtype=torch.int32) + (hi != 0xF).sum(
+        dim=1, dtype=torch.int32
+    )
+    return PackedScreen(
+        counts, counts_candidates(counts, depth, is_variant, threshold_percent)
+    )
+
+
+class TileStats(NamedTuple):
+    counts: torch.Tensor  # [L, K] allele counts
+    forward_counts: torch.Tensor  # [L, K]
+    depth: torch.Tensor  # [L] valid-slot depth
+    forward_depth: torch.Tensor  # [L]
+    variant_evidence: torch.Tensor  # [L] bool: the candidate rule
+
+
+def tile_stats(
+    allele_id: torch.Tensor,
+    strand: torch.Tensor,
+    valid: torch.Tensor,
+    is_variant: torch.Tensor,  # [L, K] bool
+    max_alleles: int,
+    threshold_percent: Optional[int] = None,
+) -> TileStats:
+    """Fused counting + candidate screening for one dense tile
+    (guacamole_tpu/ops/kernels.py::tile_stats); any number of alleles."""
+    counts, fwd = allele_counts(allele_id, strand, valid, max_alleles)
+    depth = valid.sum(dim=1, dtype=torch.int32)
+    forward_depth = (valid & strand).sum(dim=1, dtype=torch.int32)
+    return TileStats(
+        counts, fwd, depth, forward_depth,
+        counts_candidates(counts, depth, is_variant, threshold_percent),
+    )
+
+
+class TileStatsLL(NamedTuple):
+    """The five outputs of the fused dense kernel (the JAX package's
+    PallasTileStats)."""
+
+    counts: torch.Tensor  # [L, K] int32
+    forward_counts: torch.Tensor  # [L, K] int32
+    depth: torch.Tensor  # [L] int32
+    candidates: torch.Tensor  # [L] bool
+    log_likelihoods: Optional[torch.Tensor]  # [L, P] f32, None when skipped
+
+
+def stats_ll_math(
+    allele_id: torch.Tensor,  # [L, D] int, anything outside 0..K-1 = no allele
+    qual: Optional[torch.Tensor],  # [L, D] int
+    mapq: Optional[torch.Tensor],  # [L, D] int
+    strand: torch.Tensor,  # [L, D] bool
+    valid: torch.Tensor,  # [L, D] bool
+    is_variant: torch.Tensor,  # [L, K] bool
+    max_alleles: int,
+    include_alignment: bool = False,
+    threshold_percent: Optional[int] = None,
+    with_likelihoods: bool = True,
+    dtype=torch.float32,
+) -> TileStatsLL:
+    """Plain version of the stats_ll CUDA kernel, written as the TPU kernel
+    is (guacamole_tpu/ops/pallas_kernels.py::_stats_ll_kernel): counts,
+    forward counts, depth, the candidate rule, and one log per element and
+    pair for the likelihoods, with pc = 1 - 10^(q * -0.1). The CUDA kernel
+    takes three logs per element and factors the pairs; the two agree to
+    rounding. dtype=torch.float64 gives the evaluation both are held to."""
+    stats = tile_stats(
+        allele_id, strand, valid, is_variant, max_alleles, threshold_percent
+    )
+    ll = None
+    if with_likelihoods:
+        pc = 1.0 - torch.pow(10.0, qual.to(dtype) * -0.1)
+        if include_alignment:
+            pc = pc * (1.0 - torch.pow(10.0, mapq.to(dtype) * -0.1))
+        ll = genotype_log_likelihoods(allele_id, pc, valid, max_alleles)
+    return TileStatsLL(
+        stats.counts, stats.forward_counts, stats.depth,
+        stats.variant_evidence, ll,
+    )
+
+
+def tile_stats_ll(
+    allele_id, qual, mapq, strand, valid, is_variant, max_alleles: int,
+    include_alignment: bool = False,
+    threshold_percent: Optional[int] = None,
+    with_likelihoods: bool = True,
+) -> TileStatsLL:
+    """The fused dense-tile statistics where the tensors lie: the stats_ll
+    CUDA kernel on a GPU (it launches or raises), stats_ll_math on the
+    CPU."""
+    from guacamole_tpu_torch.ops.cuda_kernels import stats_ll
+
+    return stats_ll(
+        allele_id, qual, mapq, strand, valid, is_variant, max_alleles,
+        include_alignment=include_alignment,
+        threshold_percent=threshold_percent,
+        with_likelihoods=with_likelihoods,
+    )

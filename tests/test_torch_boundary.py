@@ -3,8 +3,9 @@ module of the JAX package guacamole_tpu.
 
 A machine with a GPU need not have JAX installed, and the port stands
 alone: it keeps its own copies of the host layers. A subprocess with both
-`jax` and `guacamole_tpu` blocked imports every port module and runs both
-of the port's caller commands to the end on the CPU.
+`jax` and `guacamole_tpu` blocked imports every port module and runs each
+of the port's caller commands, and its forward step, to the end on the
+CPU.
 """
 
 import os
@@ -63,10 +64,15 @@ def test_no_port_source_imports_the_jax_package():
 
 
 @pytest.fixture(scope="module")
-def fixture_bam(tmp_path_factory):
-    out = tmp_path_factory.mktemp("sim")
-    manifest = make_scale_fixture(str(out), scale=0.02, seed=7)
-    return os.path.join(str(out), manifest["files"]["germline_bam"])
+def fixture_files(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("sim"))
+    manifest = make_scale_fixture(out, scale=0.02, seed=7)
+    return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
+
+
+@pytest.fixture(scope="module")
+def fixture_bam(fixture_files):
+    return fixture_files["germline_bam"]
 
 
 def test_port_runs_germline_threshold_with_jax_blocked(tmp_path, fixture_bam):
@@ -79,20 +85,40 @@ def test_port_runs_germline_standard_with_jax_blocked(tmp_path, fixture_bam):
     _run_blocked(tmp_path, fixture_bam, "germline-standard", [], 1000)
 
 
-def _run_blocked(tmp_path, fixture_bam, command, extra, min_records):
-    vcf = str(tmp_path / "out.vcf")
+def test_port_runs_somatic_standard_with_jax_blocked(tmp_path, fixture_files):
+    _run_blocked(
+        tmp_path, None, "somatic-standard",
+        ["--tumor-reads", fixture_files["tumor_bam"], "--normal-reads",
+         fixture_files["normal_bam"], "--odds", "20"],
+        10,
+    )
+
+
+def test_port_runs_its_forward_step_with_jax_blocked():
+    _run_code_blocked(
+        "from guacamole_tpu_torch.entry import entry\n"
+        "forward, args = entry('cpu')\n"
+        "counts, candidates, ll = forward(*args)\n"
+        "assert counts.shape == (128, 8) and ll.shape == (128, 36)\n"
+        "assert bool(candidates.any()) and bool(ll.isfinite().all())\n"
+        "rc = 0\n"
+    )
+
+
+def _run_code_blocked(body):
+    """Run `body` (which sets rc) in a subprocess with jax and the JAX
+    package blocked, after importing every module of the port."""
     modules = port_modules()
     assert "guacamole_tpu_torch.cli" in modules
-    assert "guacamole_tpu_torch.callers.germline_standard" in modules
+    assert "guacamole_tpu_torch.callers.somatic_standard" in modules
+    assert "guacamole_tpu_torch.entry" in modules
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None  # any 'import jax' now raises\n"
         "sys.modules['guacamole_tpu'] = None\n"
         f"for mod in {modules!r}:\n"
         "    importlib.import_module(mod)\n"
-        "from guacamole_tpu_torch.cli import main\n"
-        f"rc = main([{command!r}, '--reads', {fixture_bam!r}, *{extra!r},\n"
-        f"           '--out', {vcf!r}, '--device', 'cpu', '--debug'])\n"
+        + body +
         "leaked = sorted(\n"
         "    m for m, mod in sys.modules.items()\n"
         "    if mod is not None and (\n"
@@ -106,6 +132,16 @@ def _run_blocked(tmp_path, fixture_bam, command, extra, min_records):
         text=True, timeout=600,
     )
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+def _run_blocked(tmp_path, fixture_bam, command, extra, min_records):
+    vcf = str(tmp_path / "out.vcf")
+    reads = [] if fixture_bam is None else ["--reads", fixture_bam]
+    _run_code_blocked(
+        "from guacamole_tpu_torch.cli import main\n"
+        f"rc = main([{command!r}, *{reads!r}, *{extra!r},\n"
+        f"           '--out', {vcf!r}, '--device', 'cpu', '--debug'])\n"
+    )
     with open(vcf) as fh:
         records = [ln for ln in fh if not ln.startswith("#")]
     assert len(records) >= min_records

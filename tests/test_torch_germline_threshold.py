@@ -144,3 +144,63 @@ def test_unported_options_fail_with_one_line(tmp_path, fixture_bam, capsys):
         )
         assert rc == 1
         assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("host_screen", ["0", "1"], ids=["device", "host"])
+@pytest.mark.parametrize("native", [False, True], ids=["objects", "columnar"])
+def test_sixteen_alleles_give_the_jax_calls(monkeypatch, native, host_screen):
+    """More than 15 alleles do not fit the 4-bit encodings: such tiles are
+    full per-element tiles and take the dense kernel (on the CPU, its plain
+    version), where the JAX package runs XLA's tile_stats. Same calls."""
+    import torch
+
+    from guacamole_tpu.callers import germline_threshold as jax_gt
+    from guacamole_tpu.callers.source import ReadSource as JaxReadSource
+    from guacamole_tpu.loci.lociset import LociSet as JaxLociSet
+    from guacamole_tpu.loci.partition import (
+        partition_loci_uniformly as jax_partition,
+    )
+    from guacamole_tpu.runtime.columnar import (
+        columnar_from_reads as jax_columnar,
+    )
+    from guacamole_tpu_torch.callers.source import ReadSource
+    from guacamole_tpu_torch.loci.lociset import LociSet
+    from guacamole_tpu_torch.loci.partition import partition_loci_uniformly
+    from guacamole_tpu_torch.ops import dispatch
+    from guacamole_tpu_torch.runtime.columnar import columnar_from_reads
+    from test_pack import synthetic_reads
+
+    monkeypatch.setenv("GUAC_HOST_SCREEN", host_screen)
+    reads = sorted(
+        (r for r in synthetic_reads()
+         if r.cigar.read_length == len(r.sequence)),
+        key=lambda r: r.start,
+    )
+    launched = []
+    real = dispatch.screen_dense_launch
+    monkeypatch.setattr(
+        dispatch, "screen_dense_launch",
+        lambda *a, **k: launched.append(1) or real(*a, **k),
+    )
+    jax_source = (
+        JaxReadSource.from_columnar(jax_columnar(reads, native=True))
+        if native else reads
+    )
+    port_source = (
+        ReadSource.from_columnar(columnar_from_reads(reads, native=True))
+        if native else reads
+    )
+    want = jax_gt.call_variants(
+        jax_source, jax_partition(2, JaxLociSet.of("chr1", 0, 20)),
+        threshold_percent=8, max_alleles=16,
+    )
+    got = port_gt.call_variants(
+        port_source, partition_loci_uniformly(2, LociSet.of("chr1", 0, 20)),
+        threshold_percent=8, max_alleles=16, device=torch.device("cpu"),
+    )
+    assert launched
+    key = lambda c: (  # noqa: E731
+        c.contig, c.start, c.allele.ref_bases, c.allele.alt_bases, c.labels,
+    )
+    assert [key(c) for c in got] == [key(c) for c in want]
+    assert got

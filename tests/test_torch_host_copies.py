@@ -87,22 +87,58 @@ def test_native_bindings_differ_only_in_where_the_library_is_built():
     assert '"make"' not in head and 'libguac_runtime.so"' not in head
 
 
-def test_read_source_differs_only_in_the_dropped_kernel_switch():
-    """callers/source.py: iter_tiles does not ask ops.dispatch whether a
-    fused dense kernel wants full tiles (the port has no such switch)."""
+def test_read_source_differs_only_in_the_name_of_the_dense_switch():
+    """callers/source.py: iter_tiles asks the port's dispatch whether the
+    fused dense kernel wants full tiles, under the port's name for that
+    switch (dense_tiles, GUAC_DENSE_TILES=1) where the original asks
+    use_pallas (GUAC_USE_PALLAS=1 on a TPU)."""
     want = _rewritten("callers/source")
-    switch = want[
-        want.index('        if fields in ("screen", "likelihood"'):
-        want.index("        if self._cols is not None:\n"
-                   "            from guacamole_tpu_torch.pack.columnar "
-                   "import iter_tiles_columnar")
-    ]
-    assert "use_pallas" in switch
-    want = want.replace(switch, "")
+    assert want.count("use_pallas") == 2 and "fused Pallas kernel" in want
+    want = want.replace("use_pallas", "dense_tiles").replace(
+        "fused Pallas kernel", "fused dense kernel")
     got = _read(PORT_PKG, "callers/source")
     # The module docstrings differ; compare from the imports on.
     start = "from __future__ import annotations"
     assert got[got.index(start):] == want[want.index(start):]
+
+
+def _without(text, cuts):
+    """text with each (start marker, end marker) span removed; every
+    marker must be there."""
+    for start, end in cuts:
+        a = text.index(start)
+        text = text[:a] + text[text.index(end, a):]
+    return text
+
+
+def test_somatic_caller_differs_only_in_the_device_plumbing():
+    """callers/somatic_standard.py: the port's copy differs from the
+    original in call_variants' screen wiring (an explicit device, no mesh),
+    in _try_streaming and in main (--device, the refusals, no
+    multi-process helpers). Everything else is the original after the
+    rename: the exact f64 kernels, the filters, the confirm stage and the
+    naive left fold of the normal-likelihood total."""
+    want = _rewritten("callers/somatic_standard")
+    got = _read(PORT_PKG, "callers/somatic_standard")
+    start = "from __future__ import annotations"
+    plumbing = [
+        # call_variants, from its signature to the confirm stage
+        ("def call_variants(", "    def confirm("),
+        # the screen iterator inside call_variants
+        ("    def screened():", "        for (contig, tile, tumor, normal), pending"),
+        ("def _try_streaming(", "def main("),
+        ("def main(", "    progress(\"Computed %d potential genotypes.\""),
+        ("    records = ", "    return 0"),
+    ]
+    want = _without(want[want.index(start):], plumbing).replace(
+        "import numpy as np\n", "import numpy as np\nimport torch\n", 1)
+    assert _without(got[got.index(start):], plumbing) == want
+    # Both naive folds (the per-locus one and the batched one) lie in the
+    # part held equal.
+    assert want.count("normal_variants_total += ") == 2
+    assert "sum(" not in "".join(
+        line for line in want.splitlines(True) if "normal_variants_total" in line
+    )
 
 
 def test_platform_keeps_the_allocator_tuning_only():
