@@ -14,18 +14,24 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     on the same inputs.
     The counting kernels, with tolerance 0 (every output is an integer):
     random CSR rows, a main-path megatile (about 1M rows, 70 MB of blob,
-    timed), a row over 64 KB (the int32-offset wire form) and compaction
-    with the cap below and above the candidate count.
+    timed), a row over 64 KB (the int32-offset wire form), compaction with
+    the cap below and above the candidate count, and the tiles of
+    ops/edge_shapes.py at the edges of the counting kernel's routes (row
+    lengths on and beside every threshold, empty rows only, long rows
+    only, one row, row counts around a warp's and a block's, unpadded
+    blobs, blobs that start at an odd byte of a larger tensor).
     The likelihood screen ll_screen, whose flags come out of f32 sums: all
     four forms (germline/tumor x uint16/uint8) at K in {2, 8, 15}, D in
-    {8, 64, 1024, 16384}, min_phred 0 and 40, with all-empty rows and
-    q = 0 elements. The kernel's flags must (a) equal the plain f32
+    {8, 15, 16, 32, 48, 64, 128, 1024, 16384}, min_phred 0 and 40, with
+    all-empty rows and q = 0 elements, row counts that are no multiple of
+    32, and tiles with no, 22% and only live rows. The kernel's flags must (a) equal the plain f32
     version's on every row whose decision is not within LL_REL_TOL of its
     boundary (such rows are counted and may be at most 0.1% of the rows),
     (b) be a superset of an f64 evaluation of the same rule with margin 0
     and no safety band, and (c) be the same from the uint8 and the uint16
     form of one tile. Then one main-path shape (1M rows x D = 32, uint8),
     timed in the germline form and in the tumor form (with its MAPQ plane).
+    Both screens are also timed at one row: the launch floor.
     The fused dense kernel stats_ll: K in {2, 8, 15, 16, 20}, D in {8, 15,
     64, 1024, 16384}, with and without alignment, thresholds None, 0, 8
     and 50, with and without the likelihood output, all-empty rows, q = 0
@@ -54,7 +60,11 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     launched and no other screen kernel did, and that each VCF equals its
     default run's; then runs the forward step of guacamole_tpu_torch.entry
     on its example tile and on the timed shape against the plain version;
- 8. prints one JSON line of kernel results, then, as the last line,
+ 8. times all four kernels once more at the median launch of their main
+    path in this run (each main-path run prints the shapes its kernels
+    were launched at: min / median / max), back to back and with a cold
+    L2 cache;
+ 9. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -180,20 +190,20 @@ def _random_csr(rng, L, max_depth, K, device):
     return wire.blob, wire.row_off, wire.variant_words
 
 
-def _megatile(device, K=8, seed=2026):
-    """A main-path megatile made on the device: 1M rows at 0..30x, a
-    100k-row band at 950..1050x and a 2k-row spike at 7600..8400x, with
-    the 0xF pad on odd-depth rows. Allele 0 is the reference; alleles 1..3
-    are variants, seen in 1% of reads (errors) and in half the reads of
-    one row in 1500 (het sites)."""
+def _csr_tile(device, n_short, n_band, n_spike, seed=2026):
+    """A main-path CSR tile made on the device: n_short rows at 0..30x,
+    n_band rows at 950..1050x and n_spike rows at 7600..8400x, shuffled,
+    with the 0xF pad on odd-depth rows. Allele 0 is the reference; alleles
+    1..3 are variants, seen in 1% of reads (errors) and in half the reads
+    of one row in 1500 (het sites)."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def depths(n, lo, hi):
         return torch.randint(lo, hi + 1, (n,), generator=g, device=device)
 
     depth = torch.cat(
-        [depths(1_000_000, 0, 30), depths(100_000, 950, 1050),
-         depths(2_000, 7600, 8400)]
+        [depths(n_short, 0, 30), depths(n_band, 950, 1050),
+         depths(n_spike, 7600, 8400)]
     )
     depth = depth[torch.randperm(depth.numel(), generator=g, device=device)]
     L = depth.numel()
@@ -217,17 +227,81 @@ def _megatile(device, K=8, seed=2026):
     return blob, row_off.to(torch.int32), words.to(torch.uint16)
 
 
+def _megatile(device):
+    """1M rows at 0..30x, a 100k-row band at about 1000x and a 2k-row
+    spike at about 8000x: 1,102,000 rows, 66 MB of blob."""
+    return _csr_tile(device, 1_000_000, 100_000, 2_000)
+
+
+def _csr_tile_of(device, rows, blob_bytes):
+    """A tile of about `rows` rows and `blob_bytes` bytes: short rows (7.75
+    bytes on average) and as many band rows (500 bytes) as the bytes need,
+    one spike row (4,000 bytes) to 50 band rows as in the megatile."""
+    heavy = max(0.0, blob_bytes - 7.75 * rows) / (500 - 7.75 + (4000 - 7.75) / 50)
+    n_band, n_spike = int(heavy), int(heavy / 50)
+    return _csr_tile(device, max(1, rows - n_band - n_spike), n_band, n_spike)
+
+
 def _time_ms(fn, reps):
+    """Device time of one call, from events around runs of calls. The card
+    first spins for as long as the host may take to enqueue a run (about
+    60 us a call), so the calls run back to back on the device and a kernel
+    shorter than its wrapper's host time is not timed by the host. With 50
+    calls or more they are made in five runs and the median run counts, so
+    one stall of the host does not show."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    runs = 5 if reps >= 50 else 1
+    per_run = reps // runs
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(per_run * 60e-6 * 2e9))
+        start.record()
+        for _ in range(per_run):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / per_run)
+    return float(np.median(times))
+
+
+def _host_call_ms(fn, reps=200):
+    """Host time of one call of a wrapper (allocations, checks, the
+    launch), the device not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
+    host = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return host
+
+
+L2_FLUSH_BYTES = 128 << 20  # above the card's 50 MB of L2
+
+
+def _time_cold_ms(fn, device, reps=15):
+    """The median time of one call that finds none of its inputs in the L2
+    cache, as a launch of the main path does after its tile was staged: a
+    128 MB buffer is overwritten before every call, and each call has its
+    own pair of events."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(400_000)  # the host gets ahead; the L2 stays cold
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def _max_err(a, b):
@@ -238,31 +312,44 @@ def _max_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+# The largest |kernel - plain| any check of the counting kernels has seen.
+COUNTING_ERR = {"csr_count_screen": 0, "csr_compact": 0}
+
+
+def screen_both(blob, off, words, K, t):
+    """csr_count_screen on the card, held to its plain version."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
+    kc, kf = ck.csr_count_screen(blob, off, words, K, t)
+    pc, pf = plain.csr_count_screen(blob, off, words, K, t)
+    e = max(_max_err(kc, pc), _max_err(kf, pf))
+    COUNTING_ERR["csr_count_screen"] = max(COUNTING_ERR["csr_count_screen"], e)
+    check(e == 0, f"csr_count_screen != plain (L={off.numel() - 1}, K={K}, "
+          f"t={t}): {e}")
+    return kc, kf
+
+
+def compact_both(flags, counts, cap):
+    """csr_compact on the card, held to its plain version."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
+    got = ck.csr_compact(flags, counts, cap)
+    e = _max_err(got, plain.compact_candidates(flags, counts, cap))
+    COUNTING_ERR["csr_compact"] = max(COUNTING_ERR["csr_compact"], e)
+    check(e == 0, f"csr_compact != plain (L={flags.numel()}, cap={cap}): {e}")
+    return got
+
+
 def check_kernels(device) -> dict:
     """Every kernel against its plain twin at shapes (a)-(d); returns the
     per-kernel record for the JSON line (launches filled in later)."""
 
     from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import edge_shapes
     from guacamole_tpu_torch.ops import kernels as plain
     from guacamole_tpu_torch.ops.dispatch import wire_from_numpy
-
-    err = {"csr_count_screen": 0, "csr_compact": 0}
-
-    def screen_both(blob, off, words, K, t):
-        kc, kf = ck.csr_count_screen(blob, off, words, K, t)
-        pc, pf = plain.csr_count_screen(blob, off, words, K, t)
-        e = max(_max_err(kc, pc), _max_err(kf, pf))
-        check(e == 0, f"csr_count_screen != plain (K={K}, t={t}): {e}")
-        err["csr_count_screen"] = max(err["csr_count_screen"], e)
-        return kc, kf
-
-    def compact_both(flags, counts, cap):
-        got = ck.csr_compact(flags, counts, cap)
-        want = plain.compact_candidates(flags, counts, cap)
-        e = _max_err(got, want)
-        check(e == 0, f"csr_compact != plain (cap={cap}): {e}")
-        err["csr_compact"] = max(err["csr_compact"], e)
-        return got
 
     rng = np.random.default_rng(2026)
     # (a) random rows, depth 0..64, and (d) compaction around the count.
@@ -284,121 +371,129 @@ def check_kernels(device) -> dict:
     blob, off, words = wire.blob, wire.row_off, wire.variant_words
     check(off.tolist() == row_off.tolist(), "int32-offset wire form")
     screen_both(blob, off, words, 8, None)
+    # (e) the edges of the kernel's routes (ops/edge_shapes.py): each tile
+    # unpadded, so its last row ends at the blob's last byte, and again as
+    # a slice that starts 1, 3 and 15 bytes into a larger tensor whose
+    # leading bytes would count as allele 0 if they were read.
+    n_edge = 0
+    for K in (1, 8, 15):
+        for name, blob_np, off_np, iv in edge_shapes.csr_edge_cases(K):
+            off = torch.from_numpy(off_np).to(device)
+            words = torch.from_numpy(plain.pack_variant_words16(iv)).to(device)
+            for lead in (0, 1, 3, 15) if K == 8 else (0, 3):
+                blob = torch.cat([
+                    torch.zeros(lead, dtype=torch.uint8),
+                    torch.from_numpy(blob_np),
+                ]).to(device)[lead:]
+                check(blob.numel() == 0 or blob.data_ptr() % 16 == lead,
+                      f"edge tile {name!r}: slice not {lead} bytes in")
+                for t in (None, 25):
+                    screen_both(blob, off, words, K, t)
+                    n_edge += 1
+    torch.cuda.synchronize()
     # (b) the main-path megatile, timed.
-    blob, off, words = _megatile(device)
+    mega = _time_counting(device, *_megatile(device))
+    # The launch floor: one row of 8 bytes.
+    blob1, off1, words1 = (
+        torch.full((8,), 0x10, dtype=torch.uint8, device=device),
+        torch.tensor([0, 8], dtype=torch.int32, device=device),
+        torch.tensor([2], dtype=torch.int32, device=device).to(torch.uint16),
+    )
+    screen_both(blob1, off1, words1, 8, 25)
+    floor_ms = _time_ms(
+        lambda: ck.csr_count_screen(blob1, off1, words1, 8, 25), 200)
+    host_ms = _host_call_ms(
+        lambda: ck.csr_count_screen(blob1, off1, words1, 8, 25))
+    print(
+        f"megatile: {mega['rows']} rows, {mega['blob_bytes']} blob bytes, "
+        f"{mega['candidates']} candidates at --threshold 25, cap "
+        f"{mega['cap']}; "
+        + "; ".join(
+            f"{n} kernel {mega[n]['ms']:.4f} ms, plain "
+            f"{mega[n]['plain_ms']:.4f} ms, bound {mega[n]['bound_ms']:.4f} "
+            f"ms ({mega[n]['bound_by']})"
+            for n in ("csr_count_screen", "csr_compact")
+        )
+        + f"; csr_count_screen moves "
+        f"{mega['csr_count_screen']['bytes'] / mega['csr_count_screen']['ms'] / 1e6:.1f}"
+        f" GB/s; at L = 1 (the launch floor) {floor_ms:.4f} ms on the "
+        f"device, {host_ms:.4f} ms of host time a call; "
+        f"{n_edge} edge launches equal to the plain version",
+        flush=True,
+    )
+    # No single PyTorch call counts nibbles per CSR row, and torch.nonzero
+    # plus a gather are two calls (the plain version): no library_ms.
+    records = {
+        name: {
+            "name": name, "route": "cuda", "source": COUNT_SCREEN_SOURCE,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": COUNTING_ERR[name],
+            "ms": mega[name]["ms"], "plain_ms": mega[name]["plain_ms"],
+            "bound_ms": mega[name]["bound_ms"],
+            "bound_by": mega[name]["bound_by"], "library_ms": None,
+        }
+        for name, replaces in (
+            ("csr_count_screen", "guacamole_tpu/ops/pallas_kernels.py:268"),
+            ("csr_compact", "guacamole_tpu/ops/kernels.py:251"),
+        )
+    }
+    records["csr_count_screen"]["floor_ms"] = floor_ms
+    records["csr_count_screen"]["host_call_ms"] = host_ms
+    records["csr_count_screen"]["edge_launches"] = n_edge
+    return records
+
+
+def _time_counting(device, blob, off, words, cold=False):
+    """Both counting kernels on one tile (K = 8, --threshold 25): checked
+    against their plain versions, then timed in turns (plain, kernel,
+    kernel, plain), with their bounds. With cold, also the time of a launch
+    that finds nothing in the L2 cache."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
     L = off.numel() - 1
     cap = max(512, L // 256)
     counts, flags = screen_both(blob, off, words, 8, 25)
     compact_both(flags, counts, cap)
     compact_both(flags, counts, max(int(flags.sum()) - 1, 0))
-
-    def kscreen():
-        ck.csr_count_screen(blob, off, words, 8, 25)
-
-    def pscreen():
-        plain.csr_count_screen(blob, off, words, 8, 25)
-
-    def kcompact():
-        ck.csr_compact(flags, counts, cap)
-
-    def pcompact():
-        plain.compact_candidates(flags, counts, cap)
-
-    times = {}
-    for name, kfn, pfn in (
-        ("csr_count_screen", kscreen, pscreen),
-        ("csr_compact", kcompact, pcompact),
-    ):
-        p1 = _time_ms(pfn, 3)
-        k1 = _time_ms(kfn, 50)
-        k2 = _time_ms(kfn, 50)
-        p2 = _time_ms(pfn, 3)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
     n_cand = int(flags.sum())
     K = counts.shape[1]
-    # One add per nibble for the counts; one add per flag for the scan.
-    # The compaction reads the counts of candidate rows only.
-    bounds = {
-        "csr_count_screen": _bound_ms(
+    calls = {
+        "csr_count_screen": (
+            lambda: ck.csr_count_screen(blob, off, words, 8, 25),
+            lambda: plain.csr_count_screen(blob, off, words, 8, 25),
+            # One add per nibble for the counts.
             blob.numel() + off.numel() * 4 + words.numel() * 2
             + L * K * 2 + L,
             2 * blob.numel(),
         ),
-        "csr_compact": _bound_ms(
-            L + n_cand * K * 2 + (cap + 1) * (K + 1) * 4, L
+        "csr_compact": (
+            lambda: ck.csr_compact(flags, counts, cap),
+            lambda: plain.compact_candidates(flags, counts, cap),
+            # One add per flag for the scan; the counts of candidate rows
+            # only.
+            L + n_cand * K * 2 + (cap + 1) * (K + 1) * 4,
+            L,
         ),
     }
-    print(
-        f"megatile: {L} rows, {blob.numel()} blob bytes, "
-        f"{int(flags.sum())} candidates at --threshold 25, cap {cap}; "
-        + "; ".join(
-            f"{n} kernel {k:.4f} ms, plain {p:.4f} ms"
-            for n, (k, p) in times.items()
-        )
-        + "; "
-        + "; ".join(
-            f"{n} bound {b:.4f} ms ({by})" for n, (b, by) in bounds.items()
-        ),
-        flush=True,
-    )
-    return {
-        "csr_count_screen": {
-            "name": "csr_count_screen", "route": "cuda",
-            "source": COUNT_SCREEN_SOURCE,
-            "replaces": "guacamole_tpu/ops/pallas_kernels.py:268",
-            "launches": 0, "max_abs_err": err["csr_count_screen"],
-            "ms": times["csr_count_screen"][0],
-            "plain_ms": times["csr_count_screen"][1],
-            "bound_ms": bounds["csr_count_screen"][0],
-            "bound_by": bounds["csr_count_screen"][1],
-            # No single PyTorch call counts nibbles per CSR row.
-            "library_ms": None,
-        },
-        "csr_compact": {
-            "name": "csr_compact", "route": "cuda",
-            "source": COUNT_SCREEN_SOURCE,
-            "replaces": "guacamole_tpu/ops/kernels.py:251",
-            "launches": 0, "max_abs_err": err["csr_compact"],
-            "ms": times["csr_compact"][0],
-            "plain_ms": times["csr_compact"][1],
-            "bound_ms": bounds["csr_compact"][0],
-            "bound_by": bounds["csr_compact"][1],
-            # torch.nonzero plus a gather are two calls (the plain version).
-            "library_ms": None,
-        },
-    }
+    out = {"rows": L, "blob_bytes": blob.numel(), "candidates": n_cand,
+           "cap": cap}
+    for name, (kfn, pfn, n_bytes, n_ops) in calls.items():
+        p1 = _time_ms(pfn, 3)
+        k1 = _time_ms(kfn, 50)
+        k2 = _time_ms(kfn, 50)
+        p2 = _time_ms(pfn, 3)
+        bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
+        out[name] = {
+            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        }
+        if cold:
+            out[name]["cold_ms"] = _time_cold_ms(kfn, device)
+    return out
 
 
 # --- phase 3, continued: the likelihood screen ---------------------------
-
-QUAL_DICTIONARY = (0, 2, 8, 15, 20, 25, 30, 33, 37, 41, 50, 60, 70, 80, 90, 93)
-
-
-def _ll_tile(rng, L, D, K, device):
-    """A random likelihood tile as the numpy arrays the dispatch stages,
-    in both encodings: rows of depth 0..D (one row in 16 is all empty), a
-    row's alleles drawn with an alt share of 0, 1%, 20%, 50% or 100%,
-    quals from a 16-entry dictionary that includes q = 0, a MAPQ plane,
-    and random allele planes (allele 0 the reference; four in five alleles
-    standard)."""
-    depth = rng.integers(0, D + 1, size=L)
-    depth[rng.random(L) < 1 / 16] = 0
-    valid = np.arange(D)[None, :] < depth[:, None]
-    alt_share = rng.choice([0.0, 0.01, 0.2, 0.5, 1.0], size=(L, 1))
-    alt = rng.integers(1, max(2, min(K, 5)), size=(L, D))
-    aid = np.where(rng.random((L, D)) < alt_share, alt, 0)
-    aid[rng.random((L, D)) < 0.002] = 14  # an id beyond most K: no allele
-    qidx = rng.integers(0, len(QUAL_DICTIONARY), size=(L, D))
-    qvals = np.asarray(QUAL_DICTIONARY, np.uint8)
-    qual = qvals[qidx].astype(np.uint16)
-    pack16 = np.where(valid, aid | (qual << 4), 0xFFFF).astype(np.uint16)
-    pack8 = np.where(valid, aid | (qidx << 4), 0xFF).astype(np.uint8)
-    mapq = rng.choice([0, 10, 37, 60, 254], size=(L, D)).astype(np.uint8)
-    is_variant = np.zeros((L, K), bool)
-    is_variant[:, 1:] = rng.random((L, K - 1)) < 0.8
-    is_standard = rng.random((L, K)) < 0.8
-    return pack16, pack8, qvals, mapq, is_variant, is_standard
-
 
 def _ll_decisions(plain, wire, K, min_phred, dtype):
     """(parts, any_valid) of the plain version in `dtype`."""
@@ -459,14 +554,15 @@ def _check_ll_case(ck, plain, wire, K, margin, min_phred, what):
 def _main_path_ll_tile(device, L=1 << 20, D=32, K=8, seed=2026):
     """A main-path likelihood tile made on the device, in the uint8
     qual-dictionary form native tiles ship: 1M rows at about 25x (depth
-    capped at D = 32), allele 0 the reference, errors to alleles 1..3 in
+    capped at D = 32; at another D the mean depth is 25/32 of it, as full
+    as the main path's tiles are), allele 0 the reference, errors to alleles 1..3 in
     1% of reads, one het row in 1500, quals 20..41 from a 16-entry
     dictionary. A row's flag word marks the alleles it holds as standard
     and its non-reference ones as variant, as the packer's allele tables
     do, so most rows have no variant allele at all."""
     g = torch.Generator(device=device).manual_seed(seed)
     depth = torch.poisson(
-        torch.full((L,), 25.0, device=device), generator=g
+        torch.full((L,), 25.0 * D / 32, device=device), generator=g
     ).clamp_(0, D).to(torch.int32)
     valid = torch.arange(D, device=device)[None, :] < depth[:, None]
     u = torch.rand((L, D), generator=g, device=device)
@@ -484,33 +580,102 @@ def _main_path_ll_tile(device, L=1 << 20, D=32, K=8, seed=2026):
     return pack8, words, qvals
 
 
+def _time_ll(device, pack8, words, qvals, mapq8, what, cold=False):
+    """ll_screen on one uint8 tile (K = 8, no GQ gate; the tumor form when
+    mapq8 is given): held to contracts (a) and (b), then timed in turns
+    (plain, kernel, kernel, plain), with its bound."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
+    L, D = pack8.shape
+    wire = SimpleNamespace(
+        pack=pack8, flag_words=words, qvals=qvals, mapq=mapq8)
+    flags, excused = _check_ll_case(ck, plain, wire, 8, 0.5, 0.0, what)
+    check(excused <= max(1, LL_MAX_BOUNDARY_SHARE * L),
+          f"ll_screen {what}: {excused} rows differ at the boundary")
+    qv = torch.from_numpy(qvals)
+
+    def kfn():
+        ck.ll_screen(pack8, words, 8, 0.5, 0.0, ll_qvals=qvals, ll_mapq=mapq8)
+
+    def pfn():
+        plain.ll_screen(pack8, words, 8, 0.5, 0.0, qv, mapq8)
+
+    p1 = _time_ms(pfn, 3)
+    k1 = _time_ms(kfn, 50)
+    k2 = _time_ms(kfn, 50)
+    p2 = _time_ms(pfn, 3)
+    # The least the card could do: rows with a standard variant allele are
+    # read in full (the others cannot be candidates, whatever they hold),
+    # every row's flag word is read and its flag written; two f32 adds per
+    # valid element of a row that is read.
+    has_var = (words & (words >> 16) & 0x7FFF) != 0
+    read_rows = int(has_var.sum())
+    planes = 1 if mapq8 is None else 2
+    n_bytes = read_rows * D * planes + L * 4 + L
+    n_ops = 2 * int((pack8[has_var] != 0xFF).sum())
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
+    out = {
+        "rows": L, "D": D, "read_rows": read_rows,
+        "candidates": int(flags.sum()), "excused": excused,
+        "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        "ops": n_ops,
+    }
+    if cold:
+        out["cold_ms"] = _time_cold_ms(kfn, device)
+    return out
+
+
 def check_ll_screen(device) -> dict:
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import kernels as plain
     from guacamole_tpu_torch.ops.dispatch import ll_wire_from_numpy
+    from guacamole_tpu_torch.ops.edge_shapes import LL_EDGE_DEPTHS, ll_tile
 
     rng = np.random.default_rng(2026)
     rows = excused = 0
+
+    def both_forms(tile, K, tumor, min_phred, what):
+        """Contracts (a), (b) on each encoding and (c) between them."""
+        p16, p8, qvals, mapq, iv, sa = tile
+        mq = mapq if tumor else None
+        w16 = ll_wire_from_numpy(p16, mq, iv, sa, None, device)
+        w8 = ll_wire_from_numpy(p8, mq, iv, sa, qvals, device)
+        f16, e16 = _check_ll_case(
+            ck, plain, w16, K, 0.5, min_phred, what + " uint16")
+        f8, e8 = _check_ll_case(
+            ck, plain, w8, K, 0.5, min_phred, what + " uint8")
+        check(bool((f16 == f8).all()),
+              f"ll_screen {what}: the uint8 and uint16 forms differ on "
+              f"{int((f16 != f8).sum())} rows")
+        return 2 * len(p16), e16 + e8
+
+    # Every route: one thread per row (D <= 64) in steps of 16, 8 and 1
+    # elements, teams of 4 to 32 lanes, a warp per row.
     for K in (2, 8, 15):
-        for D, L in ((8, 8192), (64, 4096), (1024, 512), (16384, 64)):
-            p16, p8, qvals, mapq, iv, sa = _ll_tile(rng, L, D, K, device)
+        for D, L in ((8, 8192), (15, 4099), (16, 4099), (32, 4099),
+                     (48, 4099), (64, 4096), (128, 2051), (1024, 512),
+                     (16384, 64)):
+            tile = ll_tile(rng, L, D, K)
             for tumor in (False, True):
-                mq = mapq if tumor else None
-                w16 = ll_wire_from_numpy(p16, mq, iv, sa, None, device)
-                w8 = ll_wire_from_numpy(p8, mq, iv, sa, qvals, device)
                 for min_phred in (0.0,) if tumor else (0.0, 40.0):
                     what = (f"K={K} D={D} {'tumor' if tumor else 'germline'} "
                             f"min_phred={min_phred:g}")
-                    f16, e16 = _check_ll_case(
-                        ck, plain, w16, K, 0.5, min_phred, what + " uint16")
-                    f8, e8 = _check_ll_case(
-                        ck, plain, w8, K, 0.5, min_phred, what + " uint8")
-                    # (c) one tile, two encodings, the same flags.
-                    check(bool((f16 == f8).all()),
-                          f"ll_screen {what}: the uint8 and uint16 forms "
-                          f"differ on {int((f16 != f8).sum())} rows")
-                    rows += 2 * L
-                    excused += e16 + e8
+                    n, e = both_forms(tile, K, tumor, min_phred, what)
+                    rows += n
+                    excused += e
+    # Tiles with no, some and only live rows (the kernel reads the live
+    # ones only), L not a multiple of 32, at the edge depths.
+    for D in LL_EDGE_DEPTHS:
+        for live_share in (0.0, 0.22, 1.0):
+            tile = ll_tile(rng, 1000 + D, D, 8, live_share)
+            for tumor in (False, True):
+                what = (f"D={D} live={live_share:g} "
+                        f"{'tumor' if tumor else 'germline'}")
+                n, e = both_forms(tile, 8, tumor, 0.0, what)
+                rows += n
+                excused += e
     check(excused <= LL_MAX_BOUNDARY_SHARE * rows,
           f"ll_screen: {excused} of {rows} rows differ at the boundary")
     # A tile of nothing but empty slots, and an empty tile.
@@ -523,75 +688,49 @@ def check_ll_screen(device) -> dict:
     check(ck.ll_screen(empty.pack[:0], empty.flag_words[:0], 8,
                        ll_qvals=empty.qvals).shape == (0,),
           "ll_screen on an empty tile")
-    # The main-path shape, timed: germline uint8, K = 8, no GQ gate.
+    # The main-path shape, timed: germline uint8, K = 8, no GQ gate; then
+    # the tumor form at the shape somatic-standard ships most: the same
+    # tile with its [L, D] uint8 MAPQ plane.
     pack8, words, qvals = _main_path_ll_tile(device)
     L, D = pack8.shape
-    wire = SimpleNamespace(pack=pack8, flag_words=words, qvals=qvals, mapq=None)
-    flags, e_main = _check_ll_case(
-        ck, plain, wire, 8, 0.5, 0.0, "main-path tile")
-    check(e_main <= LL_MAX_BOUNDARY_SHARE * L,
-          f"ll_screen main-path tile: {e_main} rows differ at the boundary")
-    qv = torch.from_numpy(qvals)
-
-    def kfn():
-        ck.ll_screen(pack8, words, 8, 0.5, 0.0, ll_qvals=qvals)
-
-    def pfn():
-        plain.ll_screen(pack8, words, 8, 0.5, 0.0, qv)
-
-    p1 = _time_ms(pfn, 3)
-    k1 = _time_ms(kfn, 50)
-    k2 = _time_ms(kfn, 50)
-    p2 = _time_ms(pfn, 3)
-    # The tumor form at the shape somatic-standard ships most: the same
-    # tile with its [L, D] uint8 MAPQ plane.
+    main = _time_ll(device, pack8, words, qvals, None, "main-path tile")
     g = torch.Generator(device=device).manual_seed(7)
     mapq8 = torch.randint(
         20, 61, pack8.shape, generator=g, device=device).to(torch.uint8)
-    tumor_wire = SimpleNamespace(
-        pack=pack8, flag_words=words, qvals=qvals, mapq=mapq8)
-    tumor_flags, e_tumor = _check_ll_case(
-        ck, plain, tumor_wire, 8, 0.5, 0.0, "main-path tile, tumor form")
-    check(e_tumor <= LL_MAX_BOUNDARY_SHARE * L,
-          f"ll_screen tumor main-path tile: {e_tumor} rows differ at the "
-          "boundary")
-
-    def tkfn():
-        ck.ll_screen(pack8, words, 8, 0.5, 0.0, ll_qvals=qvals, ll_mapq=mapq8)
-
-    def tpfn():
-        plain.ll_screen(pack8, words, 8, 0.5, 0.0, qv, mapq8)
-
-    tp1 = _time_ms(tpfn, 3)
-    tk1 = _time_ms(tkfn, 50)
-    tk2 = _time_ms(tkfn, 50)
-    tp2 = _time_ms(tpfn, 3)
-    # The least the card could do: rows with a standard variant allele are
-    # read in full (the others cannot be candidates, whatever they hold),
-    # every row's flag word is read and its flag written; two f32 adds per
-    # valid element of a row that is read.
-    has_var = (words & (words >> 16) & 0x7FFF) != 0
-    read_rows = int(has_var.sum())
-    n_bytes = read_rows * D * pack8.element_size() + L * 4 + L
-    n_ops = 2 * int((pack8[has_var] != 0xFF).sum())
-    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
-    tumor_bytes = n_bytes + read_rows * D
-    tumor_bound, tumor_by = _bound_ms(tumor_bytes, n_ops)
+    tumor = _time_ll(device, pack8, words, qvals, mapq8,
+                     "main-path tile, tumor form")
+    # The launch floor: one live row.
+    floors = {}
+    for form, mq in (("germline", None), ("tumor", mapq8[:1])):
+        _check_ll_case(
+            ck, plain, SimpleNamespace(pack=pack8[:1], flag_words=words[:1],
+                                       qvals=qvals, mapq=mq),
+            8, 0.5, 0.0, f"one row, {form}")
+        floors[form] = _time_ms(
+            lambda: ck.ll_screen(pack8[:1], words[:1], 8, 0.5, 0.0,
+                                 ll_qvals=qvals, ll_mapq=mq), 200)
+    host_ms = _host_call_ms(
+        lambda: ck.ll_screen(pack8[:1], words[:1], 8, 0.5, 0.0,
+                             ll_qvals=qvals))
+    n_excused = excused + main["excused"] + tumor["excused"]
     print(
-        f"ll tile, tumor form (uint8 + MAPQ plane): {int(tumor_flags.sum())} "
-        f"candidates; ll_screen kernel {(tk1 + tk2) / 2:.4f} ms, plain "
-        f"{(tp1 + tp2) / 2:.4f} ms, bound {tumor_bound:.4f} ms ({tumor_by}: "
-        f"{tumor_bytes} bytes, {n_ops} operations)",
+        f"ll tile, tumor form (uint8 + MAPQ plane): {tumor['candidates']} "
+        f"candidates; ll_screen kernel {tumor['ms']:.4f} ms, plain "
+        f"{tumor['plain_ms']:.4f} ms, bound {tumor['bound_ms']:.4f} ms "
+        f"({tumor['bound_by']}: {tumor['bytes']} bytes, {tumor['ops']} "
+        f"operations); at L = 1 (the launch floor) {floors['tumor']:.4f} ms",
         flush=True,
     )
     print(
-        f"ll tile: {L} rows x D={D} uint8, {read_rows} rows with a standard "
-        f"variant allele, {int(flags.sum())} candidates; ll_screen kernel "
-        f"{(k1 + k2) / 2:.4f} ms, plain {(p1 + p2) / 2:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes} bytes, {n_ops} "
-        f"operations); {excused + e_main + e_tumor} of {rows + 2 * L} checked rows "
-        f"differed from the plain version, all within {LL_REL_TOL:g} of "
-        "their boundary",
+        f"ll tile: {L} rows x D={D} uint8, {main['read_rows']} rows with a "
+        f"standard variant allele, {main['candidates']} candidates; "
+        f"ll_screen kernel {main['ms']:.4f} ms, plain {main['plain_ms']:.4f} "
+        f"ms, bound {main['bound_ms']:.4f} ms ({main['bound_by']}: "
+        f"{main['bytes']} bytes, {main['ops']} operations); at L = 1 (the "
+        f"launch floor) {floors['germline']:.4f} ms on the device, "
+        f"{host_ms:.4f} ms of host time a call; {n_excused} of "
+        f"{rows + 2 * L} checked rows differed from the plain version, all "
+        f"within {LL_REL_TOL:g} of their boundary",
         flush=True,
     )
     return {
@@ -602,17 +741,19 @@ def check_ll_screen(device) -> dict:
             # Flags are 0/1, so the error is 1 as soon as one row differs
             # from the plain version; every such row lies within LL_REL_TOL
             # of its decision boundary, and their count is given beside it.
-            "max_abs_err": float(excused + e_main + e_tumor > 0),
+            "max_abs_err": float(n_excused > 0),
             "rows_checked": rows + 2 * L,
-            "rows_differing_at_boundary": excused + e_main + e_tumor,
-            "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "tumor_form_ms": (tk1 + tk2) / 2,
-            "tumor_form_plain_ms": (tp1 + tp2) / 2,
-            "tumor_form_bound_ms": tumor_bound,
+            "rows_differing_at_boundary": n_excused,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "floor_ms": floors["germline"], "host_call_ms": host_ms,
+            "tumor_form_ms": tumor["ms"],
+            "tumor_form_plain_ms": tumor["plain_ms"],
+            "tumor_form_bound_ms": tumor["bound_ms"],
+            "tumor_form_floor_ms": floors["tumor"],
         },
     }
-
 
 
 # --- phase 3, continued: the fused dense-tile kernel ----------------------
@@ -915,12 +1056,161 @@ def _main_path_run(command, argv, kernels, kernel_records,
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     transfers = dict(dispatch.TRANSFER_STATS)
+    path = command + (" dense" if os.environ.get("GUAC_DENSE_TILES") else "")
+    MAIN_PATH_SHAPES[path] = {
+        name: list(shapes) for name, shapes in ck.LAUNCH_SHAPES.items()
+        if shapes
+    }
+    for name, shapes in MAIN_PATH_SHAPES[path].items():
+        check(len(shapes) == launches[name],
+              f"{name}: {len(shapes)} shapes recorded for {launches[name]} "
+              "launches")
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the {command} path")
         if name in kernel_records:  # absent when its check was not run
             kernel_records[name][record_as] = launches[name]
     return wall, launches, transfers
+
+
+# The launch shapes of each main path's last run: path -> kernel -> shapes,
+# as the wrappers recorded them (cuda_kernels.LAUNCH_SHAPES).
+MAIN_PATH_SHAPES = {}
+# What phase `kernels` times when a path was not run in this call: the
+# median launches of the scale-1.0 fixture's runs.
+DEFAULT_LAUNCH_SHAPES = {
+    ("germline-threshold", "csr_count_screen"): (1_048_576, 7_340_032),
+    ("germline-standard", "ll_screen"): (114_688, 32, "germline_u8"),
+    ("somatic-standard", "ll_screen"): (10_240, 1024, "tumor_u8"),
+    ("germline-threshold dense", "stats_ll"): (114_688, 32, False),
+}
+
+
+def _launch_size(kernel, shape):
+    """What orders a kernel's launches: blob bytes, rows, or cells."""
+    if kernel == "csr_count_screen":
+        return shape[1]
+    return shape[0] if kernel == "csr_compact" else shape[0] * shape[1]
+
+
+def _median_launch(kernel, shapes):
+    """The launch in the middle by size: a shape that was launched."""
+    return sorted(shapes, key=lambda sh: _launch_size(kernel, sh))[
+        (len(shapes) - 1) // 2]
+
+
+def _describe_shapes(path) -> str:
+    """min / median / max of what each kernel was launched at on a path."""
+    columns = {"csr_count_screen": ("rows", "blob bytes"),
+               "csr_compact": ("rows", "cap"), "ll_screen": ("rows", "D"),
+               "stats_ll": ("rows", "D")}
+    parts = []
+    for kernel, shapes in MAIN_PATH_SHAPES.get(path, {}).items():
+        text = []
+        for i, column in enumerate(columns[kernel]):
+            values = sorted(sh[i] for sh in shapes)
+            text.append(f"{column} {values[0]} / "
+                        f"{values[(len(values) - 1) // 2]} / {values[-1]}")
+        parts.append(
+            f"{kernel} x{len(shapes)}: " + ", ".join(text)
+            + f", median launch {_median_launch(kernel, shapes)}")
+    return "launch shapes (min / median / max): " + "; ".join(parts)
+
+
+def time_at_launch_shapes(device, records: dict) -> None:
+    """Each kernel once more at the median launch of its main path (of this
+    call's run, else the default above): checked against its plain version,
+    timed back to back as the larger shapes are and with the L2 cache
+    flushed before every launch, as a launch of the main path finds it.
+    The numbers go into the kernels' records beside their bounds."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
+    def median_of(path, kernel):
+        shapes = MAIN_PATH_SHAPES.get(path, {}).get(kernel)
+        if shapes:
+            return _median_launch(kernel, shapes), "this run's median launch"
+        return DEFAULT_LAUNCH_SHAPES[(path, kernel)], "default shape"
+
+    def keep(record, prefix, shape, origin, timed):
+        record[prefix + "launch_shape"] = list(shape)
+        record[prefix + "launch_shape_from"] = origin
+        for key in ("ms", "cold_ms", "plain_ms", "bound_ms"):
+            record[f"{prefix}launch_shape_{key}"] = timed[key]
+
+    def line(name, shape, origin, timed, floor=None):
+        print(
+            f"launch shape: {name} at {tuple(shape)} ({origin}): kernel "
+            f"{timed['ms']:.4f} ms back to back, {timed['cold_ms']:.4f} ms "
+            f"with a cold L2, plain {timed['plain_ms']:.4f} ms, bound "
+            f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}: "
+            f"{timed['bytes']} bytes)"
+            + (f", launch floor {floor:.4f} ms" if floor is not None else ""),
+            flush=True,
+        )
+
+    # The counting kernels: germline-threshold.
+    shape, origin = median_of("germline-threshold", "csr_count_screen")
+    timed = _time_counting(
+        device, *_csr_tile_of(device, *shape), cold=True)
+    made = (timed["rows"], timed["blob_bytes"])
+    for name in ("csr_count_screen", "csr_compact"):
+        if name in records:
+            keep(records[name], "", made, origin + f" {tuple(shape)}",
+                 timed[name])
+        line(name, made, origin + f" {tuple(shape)}", timed[name],
+             records.get(name, {}).get("floor_ms"))
+    # The likelihood screen: germline-standard and somatic-standard.
+    for path, prefix in (("germline-standard", ""),
+                         ("somatic-standard", "tumor_form_")):
+        (rows, D, form), origin = median_of(path, "ll_screen")
+        pack8, words, qvals = _main_path_ll_tile(device, L=rows, D=D)
+        mapq8 = None
+        if form.startswith("tumor"):
+            g = torch.Generator(device=device).manual_seed(7)
+            mapq8 = torch.randint(
+                20, 61, pack8.shape, generator=g, device=device
+            ).to(torch.uint8)
+        timed = _time_ll(device, pack8, words, qvals, mapq8,
+                         f"launch shape of {path}", cold=True)
+        if "ll_screen" in records:
+            keep(records["ll_screen"], prefix, (rows, D, form), origin, timed)
+        line(f"ll_screen ({path})", (rows, D, form), origin, timed,
+             records.get("ll_screen", {}).get(prefix + "floor_ms"))
+    # The fused dense kernel as the dense route's screens call it.
+    (rows, D, with_ll), origin = median_of(
+        "germline-threshold dense", "stats_ll")
+    tile = _main_path_dense_tile(device, L=rows, D=D)
+    K = tile.is_variant.shape[1]
+    err = {"abs": 0.0, "entries": 0, "arbitrated": 0}
+    _check_stats_ll_case(ck, plain, tile, K, False, 25, with_ll,
+                         "launch shape", err)
+
+    def call(fn):
+        return lambda: fn(
+            tile.allele_id, tile.qual, tile.mapq, tile.strand, tile.valid,
+            tile.is_variant, K, False, 25, with_ll)
+
+    p1 = _time_ms(call(plain.stats_ll_math), 3)
+    k1 = _time_ms(call(ck.stats_ll), 50)
+    k2 = _time_ms(call(ck.stats_ll), 50)
+    p2 = _time_ms(call(plain.stats_ll_math), 3)
+    n_valid = int(tile.valid.sum())
+    P = K * (K + 1) // 2
+    if with_ll:  # as check_stats_ll counts them
+        n_bytes = rows * D * 6 + rows * K + rows * (8 * K + 5 + 4 * P)
+        n_ops = n_valid * 13 + rows * P * K
+    else:
+        n_bytes = rows * D * 4 + rows * K + rows * (8 * K + 5)
+        n_ops = n_valid * 3
+    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
+    timed = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             "cold_ms": _time_cold_ms(call(ck.stats_ll), device),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
+    if "stats_ll" in records:
+        keep(records["stats_ll"], "", (rows, D, with_ll), origin, timed)
+    line("stats_ll (dense germline-threshold)", (rows, D, with_ll), origin,
+         timed)
 
 
 def make_fixture():
@@ -974,7 +1264,8 @@ def run_threshold_slice(kernel_records: dict, manifest, out) -> None:
         f"{device_walls[1]:.3f} s; launches {launches}; "
         f"transfers {transfers}; "
         f"recall {recall:.4f} precision {precision:.4f}; equal to host "
-        f"screens ({matching} records)",
+        f"screens ({matching} records); "
+        + _describe_shapes("germline-threshold"),
         flush=True,
     )
     spike = manifest["bands"]["spike"][0]  # 350000 at scale 1.0
@@ -1056,7 +1347,7 @@ def run_standard_slice(kernel_records: dict, manifest, out) -> None:
             f"{counted['ll_elements']} elements in {counted['ll_cells']} "
             f"staged slots); recall "
             f"{recall:.4f} precision {precision:.4f}; equal to host screens "
-            f"({matching} records)",
+            f"({matching} records); " + _describe_shapes("germline-standard"),
             flush=True,
         )
 
@@ -1132,7 +1423,7 @@ def run_somatic_slice(kernel_records: dict, manifest, out) -> None:
         f"slots); somatic recall {recall:.4f} "
         f"({len(called & somatic)}/{len(somatic)}), {miscalled} of "
         f"{len(germline)} germline hets called somatic; equal to host "
-        f"screens",
+        f"screens; " + _describe_shapes("somatic-standard"),
         flush=True,
     )
 
@@ -1186,7 +1477,8 @@ def run_dense_slice(kernel_records: dict, manifest, out, device) -> None:
                if default_wall is not None else "")
             + f"; launches {launches}; transfers {transfers} "
             f"({transfers['h2d_bytes'] / max(1, transfers['dense_cells']):.4f}"
-            f" H2D bytes per staged slot)",
+            f" H2D bytes per staged slot); "
+            + _describe_shapes(command + " dense"),
             flush=True,
         )
     # The forward step, on its example tile and on the timed shape.
@@ -1330,6 +1622,8 @@ def main(argv) -> int:
             run_dense_slice(records, manifest, out, device)
         if "profile" in phases:
             profile_callers(manifest, out)
+    if "kernels" in phases:
+        time_at_launch_shapes(device, records)
     torch.cuda.synchronize()
     check(not _loaded_forbidden(),
           f"modules of jax or of the JAX package were imported: "

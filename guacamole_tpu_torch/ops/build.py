@@ -107,7 +107,7 @@ def load_kernels() -> SimpleNamespace:
     csr, ll = libs["csr_screen.cu"], libs["ll_screen.cu"]
     stats = libs["stats_ll.cu"]
     csr.guac_csr_count_screen.argtypes = [
-        ptr, ptr, ptr, i64, i32, i32, ptr, ptr, ptr,
+        ptr, i64, ptr, ptr, i64, i32, i32, ptr, ptr, ptr,
     ]
     csr.guac_csr_count_screen.restype = i32
     csr.guac_csr_compact.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr]

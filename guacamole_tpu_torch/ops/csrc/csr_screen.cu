@@ -23,18 +23,56 @@
 // guacamole_tpu/ops/kernels.py::counts_candidates. The TPU form built K
 // prefix planes over the whole blob and carried a running sum across a
 // sequential grid because Mosaic cannot index VMEM dynamically. Here each
-// row's byte range is counted directly: one warp per row, grid-stride over
-// rows, lanes striding over the row's bytes with up to 15 per-allele
-// counters in registers, reduced with __shfl_xor_sync. No prefix planes and
-// no intermediate in device memory.
+// row's byte range is counted directly. No prefix planes and no
+// intermediate in device memory.
 //
 // Bound: memory. Each blob byte is read once, plus 4 B of offsets and 2 B of
 // variant words per row; each row writes 2K B of int16 counts and 1 B of
-// flag. Neighbouring lanes read neighbouring bytes, so a warp's loads
-// coalesce. But rows shorter than 32 bytes (most rows at 25x depth) leave
-// lanes idle: on an NVIDIA H100 80GB HBM3 at 700 W a 66 MB, 1.1M-row
-// megatile takes 0.53 ms, 123 GB/s against the 3.35 TB/s peak. Several
-// rows per warp is the first thing to change for speed.
+// flag.
+//
+// Design. Stage, then count; warps do not wait for one another.
+//  - A warp owns 32 consecutive rows, whose bytes are one contiguous span
+//    [row_off[r0], row_off[r1]) of the blob. It brings the span into its
+//    own part of shared memory in chunks of 2,560 bytes with 16-byte
+//    cp.async copies (every lane a 16-byte piece, neighbouring lanes
+//    neighbouring pieces), two chunks in flight: chunk i + 1 loads while
+//    chunk i is counted, and only __syncwarp() stands between them. (A
+//    first version staged 8 KB chunks per block of 256 rows behind
+//    __syncthreads(); on the card it took 0.094 ms at the megatile where
+//    this layout, otherwise the same, took 0.084 ms.) The
+//    span is aligned down to 16 bytes by ADDRESS, so a blob that starts at
+//    any byte (a slice of a tensor) is taken; a piece that is not wholly
+//    inside [blob, blob + B) is copied byte by byte, so nothing outside the
+//    blob is read, padded or not.
+//  - Work per thread follows the row's length. Lane t owns row r0 + t and
+//    keeps its K totals in registers. Of the part of its row that lies in
+//    the chunk, the lane itself counts the first and the last 16-byte piece
+//    (they hold bytes of other rows, which it sets to the 0xFF pad first)
+//    and, when the part is at most 64 bytes (depth <= 128: all but the hot
+//    spots), the pieces between: no shuffle at all. Where the last piece's
+//    bytes sit below the first piece's (always so for a part of up to 16
+//    bytes) the two are ANDed into one piece and counted once, since a
+//    count does not care where a nibble lies. The pieces between the ends
+//    of a longer part are counted by the whole warp, 16 bytes a lane, with
+//    no masking, and the warp's sums go to the owner with one
+//    __reduce_add_sync per allele. A row longer than a chunk (up to the
+//    64 KB+ rows of the int32-offset form) is simply met in several chunks.
+//  - 16 bytes are counted at once: a 4x4 bit transpose turns the four
+//    words into four planes P0..P3, where bit 4n + j of P_i is bit i of
+//    nibble n of word j; nibble == k is then an AND of the four planes,
+//    each straight or complemented, over all 32 nibbles, and the count one
+//    __popc into a plain int counter (no packed fields, so nothing to
+//    flush). ops/edge_shapes.py holds a numpy model of this arithmetic.
+//  - The rule where the counts are: the owner lane applies
+//    counts_candidates to its K totals.
+//  - Coalesced output: the warp's int16 counts meet in shared memory and
+//    leave as 16-byte stores over one contiguous range; its 32 flags leave
+//    as eight 4-byte words, built from one ballot.
+// What holds it now is integer throughput, not memory: of the megatile's 0.067
+// ms on an NVIDIA H100 80GB HBM3 at 700 W, leaving the cp.async copies out
+// saves 8%, the warps' pieces 31%, the lanes' own pieces 24%; the rest is
+// per-row work: offsets, the rule, the output (chip_tune.py --no-check;
+// PERF.md).
 //
 // Semantics, bit-equal to the JAX forms: counts are int32 in the kernel and
 // narrow to int16 with two's-complement wrap, as JAX's astype does; rows
@@ -61,6 +99,7 @@
 // scan is the later fix if it shows in a trace.
 // ---------------------------------------------------------------------------
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,85 +107,246 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kScreenThreads = 256;  // 8 rows in flight per block
-constexpr int kMaxScreenBlocks = 132 * 32;  // 32 blocks per SM of an H100 SXM
+constexpr int kScreenThreads = 128;   // one row per thread
+constexpr int kScreenWarps = kScreenThreads / 32;
+constexpr int kChunkBytes = 2560;     // one of a warp's two staging buffers
+constexpr int kThreadRowBytes = 64;   // a longer part takes the whole warp
 constexpr int kCompactThreads = 1024;
 constexpr int kCompactItems = 8;
 
+// The bytes of w lie at a .. a+3: those outside [lo, hi) become the 0xFF pad.
+__device__ __forceinline__ uint32_t pad_outside(uint32_t w, int a, int lo,
+                                                int hi) {
+  const int head = lo - a;  // bytes to drop at the low end
+  const int keep = hi - a;  // bytes below the high cut
+  if (head > 0) w |= head >= 4 ? 0xFFFFFFFFu : (1u << (8 * head)) - 1u;
+  if (keep < 4) w |= keep <= 0 ? 0xFFFFFFFFu : 0xFFFFFFFFu << (8 * keep);
+  return w;
+}
+
+// w moved so that bit i of every nibble lands on bit j of the same nibble.
+__device__ __forceinline__ uint32_t nibble_bit(uint32_t w, int i, int j) {
+  return (i >= j ? w >> (i - j) : w << (j - i)) & (0x11111111u << j);
+}
+
+// The 16 bytes q lie at a .. a+15: those outside [lo, hi) become the pad.
+__device__ __forceinline__ uint4 pad_outside16(uint4 q, int a, int lo,
+                                               int hi) {
+  q.x = pad_outside(q.x, a, lo, hi);
+  q.y = pad_outside(q.y, a + 4, lo, hi);
+  q.z = pad_outside(q.z, a + 8, lo, hi);
+  q.w = pad_outside(q.w, a + 12, lo, hi);
+  return q;
+}
+
+// Adds to c[k] the nibbles equal to k among the 16 bytes q.
 template <int K>
-__global__ void csr_count_screen_kernel(const uint8_t* __restrict__ blob,
-                                        const int32_t* __restrict__ row_off,
-                                        const uint16_t* __restrict__ vwords,
-                                        int64_t L, int threshold,
-                                        int16_t* __restrict__ counts,
-                                        uint8_t* __restrict__ flags) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  // r is uniform across the warp, so every lane reaches the shuffles.
-  for (int64_t r = warp; r < L; r += n_warps) {
-    const int32_t b0 = row_off[r];
-    const int32_t b1 = row_off[r + 1];
-    int c[K];
+__device__ __forceinline__ void count16(uint4 q, int (&c)[K]) {
+  // Bit 4n + j of plane[i] is bit i of nibble n of word j.
+  uint32_t plane[4];
 #pragma unroll
-    for (int k = 0; k < K; ++k) c[k] = 0;
-    for (int32_t b = b0 + lane; b < b1; b += 32) {
-      const int v = blob[b];
-      const int lo = v & 0xF;
-      const int hi = v >> 4;
+  for (int i = 0; i < 4; ++i)
+    plane[i] = nibble_bit(q.x, i, 0) | nibble_bit(q.y, i, 1) |
+               nibble_bit(q.z, i, 2) | nibble_bit(q.w, i, 3);
 #pragma unroll
-      for (int k = 0; k < K; ++k) c[k] += (lo == k) + (hi == k);
-    }
+  for (int k = 0; k < K; ++k) {
+    uint32_t equal = 0xFFFFFFFFu;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        c[k] += __shfl_xor_sync(kFullMask, c[k], off);
-    }
-    // Every lane now holds every row total. Lane k stores count k, so the
-    // row's 2K bytes go out as one coalesced store.
-    int mine = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (lane == k) mine = c[k];
-    if (lane < K)
-      counts[r * K + lane] =
-          static_cast<int16_t>(static_cast<uint16_t>(mine & 0xFFFF));
-    if (lane == 0) {
-      int depth = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) depth += c[k];
-      const unsigned w = vwords[r];
-      bool cand = false;
-      int ref_passing = 0;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const bool var = (w >> k) & 1u;
-        if (threshold < 0) {
-          cand |= var && c[k] > 0;
-        } else {
-          // counts_candidates: count * 100 // depth > t, division-free.
-          const bool pass = c[k] > 0 && c[k] * 100 >= depth * (threshold + 1);
-          cand |= pass && var;
-          ref_passing += (pass && !var) ? 1 : 0;
-        }
-      }
-      flags[r] = (cand || ref_passing >= 2) ? 1 : 0;
-    }
+    for (int i = 0; i < 4; ++i) equal &= ((k >> i) & 1) ? plane[i] : ~plane[i];
+    c[k] += __popc(equal);
   }
 }
 
 template <int K>
-cudaError_t launch_screen(const uint8_t* blob, const int32_t* row_off,
-                          const uint16_t* vwords, int64_t L, int threshold,
-                          int16_t* counts, uint8_t* flags,
-                          cudaStream_t stream) {
-  const int64_t rows_per_block = kScreenThreads / 32;
-  int64_t blocks = (L + rows_per_block - 1) / rows_per_block;
-  if (blocks > kMaxScreenBlocks) blocks = kMaxScreenBlocks;
+__global__ void __launch_bounds__(kScreenThreads)
+    csr_count_screen_kernel(const uint8_t* __restrict__ blob, int64_t n_blob,
+                            const int32_t* __restrict__ row_off,
+                            const uint16_t* __restrict__ vwords, int64_t L,
+                            int threshold, int16_t* __restrict__ counts,
+                            uint8_t* __restrict__ flags) {
+  __shared__ __align__(16) uint8_t stage_all[kScreenWarps][2][kChunkBytes];
+  __shared__ __align__(16) int16_t out_all[kScreenWarps][32 * K];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  // Warps do not wait for one another: each owns 32 rows, its two staging
+  // buffers and its slice of the output.
+  const int64_t r0 =
+      (static_cast<int64_t>(blockIdx.x) * kScreenWarps + wid) * 32;
+  if (r0 >= L) return;
+  uint8_t(*stage)[kChunkBytes] = stage_all[wid];
+  int16_t* out_counts = out_all[wid];
+  const int64_t row = r0 + lane;
+  const bool has_row = row < L;
+  const int rows_here = static_cast<int>(L - r0 < 32 ? L - r0 : 32);
+  // Offsets from here on count from the blob's address aligned down to 16
+  // bytes, so that every 16-byte piece is aligned whatever the blob's first
+  // byte is; the blob itself is [mis, mis + n_blob) there.
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(blob) & 15u);
+  const uint8_t* base = blob - mis;
+  const int64_t blob_end = n_blob + mis;
+  int64_t b0 = 0, b1 = 0;
+  if (has_row) {
+    b0 = static_cast<int64_t>(row_off[row]) + mis;
+    b1 = static_cast<int64_t>(row_off[row + 1]) + mis;
+  }
+  // The warp's span, and this lane's row, relative to the span's origin.
+  const int64_t origin =
+      __shfl_sync(kFullMask, b0, 0) & ~static_cast<int64_t>(15);
+  const int span_bytes =
+      static_cast<int>(__shfl_sync(kFullMask, b1, rows_here - 1) - origin);
+  const int my_lo = has_row ? static_cast<int>(b0 - origin) : 0;
+  const int my_hi = has_row ? static_cast<int>(b1 - origin) : 0;
+  const int n_chunks = (span_bytes + kChunkBytes - 1) / kChunkBytes;
+
+  auto stage_chunk = [&](int i) {
+    uint8_t* dst = stage[i & 1];
+    for (int p = lane * 16; p < kChunkBytes; p += 32 * 16) {
+      const int at = i * kChunkBytes + p;
+      if (at >= span_bytes) break;
+      const int64_t v = origin + at;
+      if (v >= mis && v + 16 <= blob_end) {
+        __pipeline_memcpy_async(dst + p, base + v, 16);
+      } else {  // the blob's first or last piece: only bytes inside it
+        for (int j = 0; j < 16; ++j)
+          if (v + j >= mis && v + j < blob_end) dst[p + j] = base[v + j];
+      }
+    }
+    __pipeline_commit();
+  };
+
+  int c[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) c[k] = 0;
+  if (n_chunks > 0) stage_chunk(0);
+  // n_chunks is uniform across the warp, so every lane reaches the
+  // __syncwarp()s and the votes.
+  for (int i = 0; i < n_chunks; ++i) {
+    if (i + 1 < n_chunks) {
+      stage_chunk(i + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncwarp();
+    const uint8_t* buf = stage[i & 1];
+    const int cs = i * kChunkBytes;
+    const int lo = my_lo > cs ? my_lo : cs;
+    const int hi = my_hi < cs + kChunkBytes ? my_hi : cs + kChunkBytes;
+    const int n = hi - lo;  // this row's bytes inside the chunk
+    // The lane's own work: the first and the last 16-byte piece of its part
+    // (they hold bytes of other rows, which become the pad), and, when the
+    // part is short, the pieces between. Where the last piece's bytes sit
+    // below the first piece's (always, for a part of up to 16 bytes), the
+    // two are merged and counted as one: a count does not care where in the
+    // 16 bytes a nibble lies.
+    if (n > 0) {
+      const int first = lo & ~15;
+      const int last = (hi - 1) & ~15;
+      uint4 q = pad_outside16(
+          *reinterpret_cast<const uint4*>(buf + (first - cs)), first, lo, hi);
+      if (last != first) {
+        const uint4 r = pad_outside16(
+            *reinterpret_cast<const uint4*>(buf + (last - cs)), last, lo, hi);
+        if (((hi - 1) & 15) < (lo & 15)) {
+          q.x &= r.x;
+          q.y &= r.y;
+          q.z &= r.z;
+          q.w &= r.w;
+        } else {
+          count16<K>(r, c);
+        }
+      }
+      count16<K>(q, c);
+      if (n <= kThreadRowBytes)
+        for (int a = first + 16; a < last; a += 16)
+          count16<K>(*reinterpret_cast<const uint4*>(buf + (a - cs)), c);
+    }
+    // The pieces between the first and the last of a long part: the warp,
+    // 16 bytes a lane, no byte of another row among them.
+    unsigned todo = __ballot_sync(kFullMask, n > kThreadRowBytes);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int wlo = (__shfl_sync(kFullMask, lo, src) & ~15) + 16;
+      const int whi = (__shfl_sync(kFullMask, hi, src) - 1) & ~15;
+      int part[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) part[k] = 0;
+      for (int a = wlo + lane * 16; a < whi; a += 32 * 16)
+        count16<K>(*reinterpret_cast<const uint4*>(buf + (a - cs)), part);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int total = __reduce_add_sync(kFullMask, part[k]);
+        if (lane == src) c[k] += total;
+      }
+    }
+    __syncwarp();  // stage[i & 1] is refilled for chunk i + 2
+  }
+
+  // The rule where the counts are.
+  bool flag = false;
+  if (has_row) {
+    int depth = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) depth += c[k];
+    const unsigned w = vwords[row];
+    bool cand = false;
+    int ref_passing = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool var = (w >> k) & 1u;
+      if (threshold < 0) {
+        cand |= var && c[k] > 0;
+      } else {
+        // counts_candidates: count * 100 // depth > t, division-free.
+        const bool pass = c[k] > 0 && c[k] * 100 >= depth * (threshold + 1);
+        cand |= pass && var;
+        ref_passing += (pass && !var) ? 1 : 0;
+      }
+    }
+    flag = cand || ref_passing >= 2;
+  }
+  // The warp's 32 flags leave as eight words of four 0/1 bytes.
+  const unsigned votes = __ballot_sync(kFullMask, flag);
+  if (lane < 8) {
+    const int64_t fr = r0 + lane * 4;
+    const unsigned bits = (votes >> (4 * lane)) & 0xFu;
+    const uint32_t word = (bits & 1u) | ((bits & 2u) << 7) |
+                          ((bits & 4u) << 14) | ((bits & 8u) << 21);
+    if (fr + 4 <= L && (reinterpret_cast<uintptr_t>(flags) & 3u) == 0) {
+      *reinterpret_cast<uint32_t*>(flags + fr) = word;
+    } else {
+      for (int j = 0; j < 4; ++j)
+        if (fr + j < L) flags[fr + j] = (word >> (8 * j)) & 0xFFu;
+    }
+  }
+  // The warp's counts are one contiguous range of the output.
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    out_counts[lane * K + k] =
+        static_cast<int16_t>(static_cast<uint16_t>(c[k] & 0xFFFF));
+  __syncwarp();
+  int16_t* dst = counts + r0 * K;
+  const int n_values = rows_here * K;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15u) == 0) {
+    const int n16 = n_values / 8;
+    for (int p = lane; p < n16; p += 32)
+      reinterpret_cast<uint4*>(dst)[p] =
+          reinterpret_cast<const uint4*>(out_counts)[p];
+    done = n16 * 8;
+  }
+  for (int e = done + lane; e < n_values; e += 32) dst[e] = out_counts[e];
+}
+
+template <int K>
+cudaError_t launch_screen(const uint8_t* blob, int64_t n_blob,
+                          const int32_t* row_off, const uint16_t* vwords,
+                          int64_t L, int threshold, int16_t* counts,
+                          uint8_t* flags, cudaStream_t stream) {
+  const int64_t blocks = (L + kScreenThreads - 1) / kScreenThreads;
   csr_count_screen_kernel<K><<<static_cast<unsigned>(blocks), kScreenThreads,
-                               0, stream>>>(blob, row_off, vwords, L,
+                               0, stream>>>(blob, n_blob, row_off, vwords, L,
                                             threshold, counts, flags);
   return cudaGetLastError();
 }
@@ -221,21 +421,27 @@ extern "C" {
 
 // counts [L, K] int16 and flags [L] uint8 (0/1, a torch.bool tensor) are
 // written for every row. threshold < 0 means "no threshold": a row is a
-// candidate when any variant allele has reads.
-int guac_csr_count_screen(const void* blob, const void* row_off,
-                          const void* vwords, int64_t L, int K, int threshold,
-                          void* counts, void* flags, void* stream) {
+// candidate when any variant allele has reads. n_blob is the blob's length
+// in bytes (below 2^31 - 16): no byte outside [blob, blob + n_blob) is read.
+int guac_csr_count_screen(const void* blob, int64_t n_blob,
+                          const void* row_off, const void* vwords, int64_t L,
+                          int K, int threshold, void* counts, void* flags,
+                          void* stream) {
   const auto* b = static_cast<const uint8_t*>(blob);
   const auto* o = static_cast<const int32_t*>(row_off);
   const auto* w = static_cast<const uint16_t*>(vwords);
   auto* c = static_cast<int16_t*>(counts);
   auto* f = static_cast<uint8_t*>(flags);
   auto s = static_cast<cudaStream_t>(stream);
+  if (n_blob < 0 || n_blob >= (int64_t{1} << 31) - 16 ||
+      L >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (L <= 0) return static_cast<int>(cudaGetLastError());  // empty grid
   switch (K) {
 #define GUAC_SCREEN_CASE(k) \
   case k:                   \
-    return static_cast<int>(launch_screen<k>(b, o, w, L, threshold, c, f, s));
+    return static_cast<int>(         \
+        launch_screen<k>(b, n_blob, o, w, L, threshold, c, f, s));
     GUAC_SCREEN_CASE(1)
     GUAC_SCREEN_CASE(2)
     GUAC_SCREEN_CASE(3)

@@ -38,28 +38,56 @@
 // Design. The TPU kernel's shape does not carry over: its 128/256-row
 // blocks and its block_l * D <= 64k rule are Mosaic's VMEM limits, and its
 // 16-way select exists because VMEM cannot be indexed. Here the per-qual
-// terms sit in shared memory and are indexed directly. D spans 8..16384, so
-// the mapping of threads to rows follows D: a team of G = D/4 lanes (2..32,
-// a power of two) owns a row, each lane reads 4 elements per step (4 B of
-// uint8 or 8 B of uint16: a warp's loads cover whole contiguous rows) and
-// keeps the 2K sums in registers, reduced with __shfl_xor_sync inside the
-// team; rows of D >= 2048 take a whole block, whose 8 warp sums meet in
-// shared memory and are added in a fixed order. The team's first lane scores
-// the pairs (fully unrolled over K, so the sums stay in registers). A row
-// without a standard variant allele can never be a candidate, so its
-// elements are not read at all.
+// terms, and in the tumor form the 256 MAPQ errors, sit in shared memory
+// (built once per block by the functions that serve the untabulated path,
+// so a tabulated value has the same bits) and are indexed directly.
+//  - Only live rows reach the body. A row without a standard variant allele
+//    can never be a candidate (78% of a main-path tile). A warp owns a
+//    group of up to 128 consecutive rows: it reads their flag words
+//    coalesced, ballots (iv & sa) != 0, writes the live rows' indices to a
+//    list in shared memory and hands them to its lanes from that list, so
+//    lanes are busy whatever the live share is. Flags meet in shared memory
+//    (dead rows are 0) and leave as one coalesced store of 4-byte words.
+//    Where rows take teams of lanes a group is one round of rows (a team
+//    fills its lanes whatever is live); with one thread a row it shrinks
+//    from 128 rows only when the tile has too few rows to give every SM
+//    four warps.
+//  - Routes by D, chosen per launch. A row is cut into steps of E elements
+//    (16 where D allows, else 8, 4 or 1): one or two 16-byte loads. Up to
+//    D = 64 a row takes ONE thread: there is no shuffle, and every lane
+//    scores its own row. Deeper rows take a team of G = 2..32 lanes (at
+//    least two steps a lane), step s going to lane s mod G, reduced with
+//    __shfl_xor_sync inside the team, scored by the team's first lane; from
+//    D = 1024 that is a warp per row, and every row of a deep tile has its
+//    own warp.
+//  - Loads in flight: a lane starts the loads of 64 bytes of its row (and
+//    the MAPQ bytes beside them) before it adds the first element.
+//  - Elements leave a step's registers by funnel shifts, so the loop over
+//    elements is rolled and the code of one element exists once. A thread's
+//    2K running sums lie in its own column of a [2K][256] array in shared
+//    memory (bank = thread, so no conflicts) and are indexed by the
+//    element's allele: two loads, two adds, two stores an element, where
+//    sums in registers cost K compares and 2K predicated adds (on the card
+//    0.0387 ms against 0.0319 ms for a 1M x 32 tile, the same bits).
 //
-// The uint8 and the uint16 form of one tile give the SAME flags: both visit
-// the elements in the same lanes and order, and both take their per-qual
-// terms from the same non-inlined device functions (the uint8 form through
-// its table, the uint16 form per element), with explicitly rounded
-// arithmetic so that the compiler fuses nothing differently in the two.
+// The uint8 and the uint16 form of one tile give the SAME flags: E, G and
+// the group size depend on D and L only, so both forms visit the elements
+// in the same lanes and order, and both take their per-qual terms from the
+// same non-inlined device functions (the uint8 form through its table, the
+// uint16 form per element), with explicitly rounded arithmetic so that the
+// compiler fuses nothing differently in the two.
 //
 // Bound: memory. Each element of a row that has a standard variant allele is
 // read once (1 or 2 B, plus 1 B of MAPQ in the tumor form), plus 4 B of flag
-// word and 1 B of output per row. The uint16 and tumor forms pay powf/logf
-// per element and may be bound by those instead; the uint8 germline form
-// (the one native tiles ship) does two shared-memory reads per element.
+// word and 1 B of output per row. At a main-path tile that is a few
+// microseconds, less than a launch costs, so the time to judge is the
+// larger of the bound and the launch floor (chip_smoke.py prints both).
+// The uint16 forms pay powf/logf per element, the tumor forms two logf.
+// What holds it is the loop over elements: on an NVIDIA H100 80GB HBM3 at
+// 700 W, of the 0.032 ms (germline) and 0.073 ms (tumor) of a 1M x 32 uint8
+// tile, leaving that loop out saves 64% and 71%, the pair scores 14% and
+// 12%; flag words, live lists and the flags' stores are the 0.007 ms that
+// stay (chip_tune.py --no-check; PERF.md).
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -72,8 +100,10 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDeepRow = 2048;             // rows this wide take a whole block
-constexpr int kMaxBlocks = 132 * 32;       // 32 blocks per SM of an H100 SXM
+constexpr int kThreadRowDepth = 64;   // rows up to this deep take one thread
+constexpr int kMaxGroupRows = 128;    // rows a warp screens for live ones at once
+constexpr int kMaxBlocks = 132 * 8;   // 8 blocks per SM of an H100 SXM
+constexpr int kWantedWarps = 132 * 4;   // a group shrinks only below these
 
 struct QualTable {
   uint8_t q[16];
@@ -103,11 +133,67 @@ __device__ __noinline__ float2 tumor_terms(float err_q, float err_m) {
                      logf(__fmul_rn(2.0f, pc)));
 }
 
+// One step of a row in registers: up to 16 elements, the first in the low
+// bits of w[0].
+template <typename PackT>
+struct Step {
+  static constexpr int kWords = 4 * sizeof(PackT);
+  uint32_t w[kWords];
+};
+
+// n elements at p, which is aligned to min(16, n * sizeof(PackT)) bytes;
+// n is 16, 8, 4 or 1.
+template <typename PackT>
+__device__ __forceinline__ void load_step(const PackT* p, int n,
+                                          Step<PackT>& s) {
+#pragma unroll
+  for (int i = 0; i < Step<PackT>::kWords; ++i) s.w[i] = 0;
+  const int bytes = n * static_cast<int>(sizeof(PackT));
+  if (bytes >= 16) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    s.w[0] = q.x;
+    s.w[1] = q.y;
+    s.w[2] = q.z;
+    s.w[3] = q.w;
+    if constexpr (sizeof(PackT) == 2) {
+      if (bytes == 32) {
+        const uint4 r = *(reinterpret_cast<const uint4*>(p) + 1);
+        s.w[4] = r.x;
+        s.w[5] = r.y;
+        s.w[6] = r.z;
+        s.w[7] = r.w;
+      }
+    }
+  } else if (bytes == 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    s.w[0] = q.x;
+    s.w[1] = q.y;
+  } else if (bytes == 4) {
+    s.w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    s.w[0] = *p;
+  }
+}
+
+// Takes the step's first element out and moves the others down.
+template <typename PackT>
+__device__ __forceinline__ unsigned next_element(Step<PackT>& s) {
+  constexpr int kBits = 8 * sizeof(PackT);
+  constexpr int kLast = Step<PackT>::kWords - 1;
+  const unsigned v = s.w[0] & ((1u << kBits) - 1u);
+#pragma unroll
+  for (int i = 0; i < kLast; ++i)
+    s.w[i] = __funnelshift_r(s.w[i], s.w[i + 1], kBits);
+  s.w[kLast] >>= kBits;
+  return v;
+}
+
 template <typename PackT, bool kTumor, int K>
 __device__ __forceinline__ void add_element(unsigned v, unsigned mq,
                                             const float* tab_x,
-                                            const float* tab_y, float (&c)[K],
-                                            float (&g)[K], int& any_valid) {
+                                            const float* tab_y,
+                                            const float* tab_m, float* sums,
+                                            int& any_valid) {
   constexpr unsigned kEmpty = sizeof(PackT) == 1 ? 0xFFu : 0xFFFFu;
   if (v == kEmpty) return;
   any_valid = 1;
@@ -117,25 +203,21 @@ __device__ __forceinline__ void add_element(unsigned v, unsigned mq,
   if constexpr (sizeof(PackT) == 1) {
     const unsigned qi = v >> 4;
     if constexpr (kTumor) {
-      xy = tumor_terms(tab_x[qi], phred_error(static_cast<float>(mq)));
+      xy = tumor_terms(tab_x[qi], tab_m[mq]);
     } else {
       xy = make_float2(tab_x[qi], tab_y[qi]);
     }
   } else {
     const float q = static_cast<float>(v >> 4);
     if constexpr (kTumor) {
-      xy = tumor_terms(phred_error(q), phred_error(static_cast<float>(mq)));
+      xy = tumor_terms(phred_error(q), tab_m[mq]);
     } else {
       xy = germline_terms(q);
     }
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (aid == k) {
-      c[k] += xy.x;
-      g[k] += xy.y;
-    }
-  }
+  // This thread's column of the block's sums: c_k at row k, g_k at K + k.
+  sums[aid * kThreads] += xy.x;
+  sums[(K + aid) * kThreads] += xy.y;
 }
 
 // The decision for one row from its reduced sums. The caller has checked
@@ -194,13 +276,22 @@ __global__ void __launch_bounds__(kThreads)
     ll_screen_kernel(const PackT* __restrict__ pack,
                      const uint8_t* __restrict__ mapq,
                      const uint32_t* __restrict__ flag_words, QualTable qt,
-                     int64_t L, int D, int n_alleles, int team, bool block_row,
-                     bool vec4, float margin, bool use_gate, float gq_floor,
-                     uint8_t* __restrict__ out) {
+                     int64_t L, int D, int n_alleles, int step, int team_log2,
+                     int group_rows, float margin, bool use_gate,
+                     float gq_floor, uint8_t* __restrict__ out) {
+  // 64 bytes of a lane's row in flight: 4 steps of uint8, 2 of uint16.
+  constexpr int kBatch = 4 / sizeof(PackT);
+  static_assert(kThreads == 256, "one thread per MAPQ value builds tab_m");
   __shared__ float tab_x[16];
   __shared__ float tab_y[16];
-  __shared__ float partial[kWarps][2 * K + 1];
+  __shared__ float tab_m[kTumor ? 256 : 1];
+  __shared__ float sums_all[2 * K][kThreads];
+  float* sums = &sums_all[0][threadIdx.x];
+  __shared__ uint8_t live_rows[kWarps][kMaxGroupRows];
+  __shared__ __align__(4) uint8_t row_flags[kWarps][kMaxGroupRows];
   const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int wid = t >> 5;
   if constexpr (sizeof(PackT) == 1) {
     // Germline: the (x, y) terms of each dictionary qual; tumor: its error
     // in tab_x. Entries past the dictionary are 0, as the JAX forms pad.
@@ -217,107 +308,133 @@ __global__ void __launch_bounds__(kThreads)
       tab_x[t] = xy.x;
       tab_y[t] = xy.y;
     }
-    __syncthreads();
   }
+  if constexpr (kTumor) tab_m[t] = phred_error(static_cast<float>(t));
+  __syncthreads();
   const unsigned kmask = (1u << n_alleles) - 1u;
-  const int rows_per_block = block_row ? 1 : kThreads / team;
-  const int member = block_row ? t : t % team;   // this thread's place in its team
-  const int stride = block_row ? kThreads : team;
-  // Every thread of a block runs the same number of iterations, so the
-  // shuffles and (in block_row mode, where the row is uniform across the
-  // block) the barriers are reached by all.
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-       base < L; base += static_cast<int64_t>(gridDim.x) * rows_per_block) {
-    const int64_t row = block_row ? base : base + t / team;
-    const bool active = row < L;
-    const unsigned fw = active ? flag_words[row] : 0u;
-    const unsigned iv = fw & kmask;
-    const unsigned sa = (fw >> 16) & kmask;
-    const bool work = active && (iv & sa) != 0;
-    if (!__any_sync(kFullMask, work)) {
-      if (active && member == 0) out[row] = 0;
-      continue;
+  const int team = 1 << team_log2;         // lanes that share a row
+  const int member = lane & (team - 1);    // this lane's place in its team
+  const int my_team = lane >> team_log2;
+  const int rows_per_round = 32 >> team_log2;
+  const int n_steps = D / step;
+  const bool word_store =
+      group_rows >= 4 && (reinterpret_cast<uintptr_t>(out) & 3u) == 0;
+  uint8_t* live = live_rows[wid];
+  uint8_t* flags = row_flags[wid];
+  const int64_t n_groups = (L + group_rows - 1) / group_rows;
+  // Every loop bound below is uniform across the warp, so all lanes reach
+  // the votes, the shuffles and the __syncwarp()s.
+  for (int64_t grp = static_cast<int64_t>(blockIdx.x) * kWarps + wid;
+       grp < n_groups; grp += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int64_t base = grp * group_rows;
+    for (int i = lane; i < kMaxGroupRows / 4; i += 32)
+      reinterpret_cast<uint32_t*>(flags)[i] = 0;
+    int n_live = 0;
+    for (int j = 0; j < group_rows; j += 32) {
+      const int idx = j + lane;
+      unsigned fw = 0;
+      if (idx < group_rows && base + idx < L) fw = flag_words[base + idx];
+      const bool is_live = (fw & (fw >> 16) & kmask) != 0;
+      const unsigned votes = __ballot_sync(kFullMask, is_live);
+      if (is_live)
+        live[n_live + __popc(votes & ((1u << lane) - 1u))] =
+            static_cast<uint8_t>(idx);
+      n_live += __popc(votes);
     }
-    float c[K], g[K];
+    __syncwarp();
+    for (int n0 = 0; n0 < n_live; n0 += rows_per_round) {
+      const bool has_row = n0 + my_team < n_live;
+      const int idx = has_row ? live[n0 + my_team] : 0;
+      const int64_t row = base + idx;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      c[k] = 0.0f;
-      g[k] = 0.0f;
-    }
-    int any_valid = 0;
-    if (work) {
-      const PackT* prow = pack + row * D;
-      const uint8_t* mrow = kTumor ? mapq + row * D : nullptr;
-      if (vec4) {
-        for (int e = member * 4; e < D; e += stride * 4) {
-          unsigned v[4];
-          if constexpr (sizeof(PackT) == 1) {
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(prow + e);
-            v[0] = w & 0xFFu;
-            v[1] = (w >> 8) & 0xFFu;
-            v[2] = (w >> 16) & 0xFFu;
-            v[3] = w >> 24;
-          } else {
-            const uint2 w = *reinterpret_cast<const uint2*>(prow + e);
-            v[0] = w.x & 0xFFFFu;
-            v[1] = w.x >> 16;
-            v[2] = w.y & 0xFFFFu;
-            v[3] = w.y >> 16;
+      for (int k = 0; k < 2 * K; ++k) sums[k * kThreads] = 0.0f;
+      int any_valid = 0;
+      if (has_row) {
+        const PackT* prow = pack + row * D;
+        const uint8_t* mrow = kTumor ? mapq + row * D : nullptr;
+        for (int s0 = member; s0 < n_steps; s0 += team * kBatch) {
+          Step<PackT> pk[kBatch];
+          Step<uint8_t> mq[kBatch];
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b) {
+            const int s = s0 + b * team;
+            if (s < n_steps) {
+              load_step<PackT>(prow + s * step, step, pk[b]);
+              if constexpr (kTumor)
+                load_step<uint8_t>(mrow + s * step, step, mq[b]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < Step<PackT>::kWords; ++i) pk[b].w[i] = 0;
+            }
+            if (!kTumor || s >= n_steps) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) mq[b].w[i] = 0;
+            }
           }
-          unsigned m = 0;
-          if constexpr (kTumor)
-            m = *reinterpret_cast<const uint32_t*>(mrow + e);
+          // The steps in order, each taken from pk[0]; the others move up.
+#pragma unroll 1
+          for (int b = 0; b < kBatch && s0 + b * team < n_steps; ++b) {
+#pragma unroll 1
+            for (int e = 0; e < step; ++e) {
+              const unsigned v = next_element<PackT>(pk[0]);
+              const unsigned m = kTumor ? next_element<uint8_t>(mq[0]) : 0u;
+              add_element<PackT, kTumor, K>(v, m, tab_x, tab_y, tab_m, sums,
+                                            any_valid);
+            }
 #pragma unroll
-          for (int s = 0; s < 4; ++s)
-            add_element<PackT, kTumor, K>(v[s], (m >> (8 * s)) & 0xFFu, tab_x,
-                                          tab_y, c, g, any_valid);
+            for (int i = 0; i + 1 < kBatch; ++i) {
+              pk[i] = pk[i + 1];
+              mq[i] = mq[i + 1];
+            }
+          }
         }
-      } else {
-        for (int e = member; e < D; e += stride)
-          add_element<PackT, kTumor, K>(prow[e], kTumor ? mrow[e] : 0u, tab_x,
-                                        tab_y, c, g, any_valid);
       }
-    }
-    const int width = block_row ? 32 : team;
-    for (int off = width >> 1; off > 0; off >>= 1) {
+      float c[K], g[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        c[k] += __shfl_xor_sync(kFullMask, c[k], off);
-        g[k] += __shfl_xor_sync(kFullMask, g[k], off);
+        c[k] = sums[k * kThreads];
+        g[k] = sums[(K + k) * kThreads];
       }
-      any_valid |= __shfl_xor_sync(kFullMask, any_valid, off);
-    }
-    if (block_row) {
-      // `work` is uniform across the block here, and true.
-      const int wid = t >> 5;
-      if ((t & 31) == 0) {
+      for (int off = team >> 1; off > 0; off >>= 1) {
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          partial[wid][k] = c[k];
-          partial[wid][K + k] = g[k];
+          c[k] += __shfl_xor_sync(kFullMask, c[k], off);
+          g[k] += __shfl_xor_sync(kFullMask, g[k], off);
         }
-        partial[wid][2 * K] = static_cast<float>(any_valid);
+        any_valid |= __shfl_xor_sync(kFullMask, any_valid, off);
       }
-      __syncthreads();
-      if (t == 0) {
-        for (int w = 1; w < kWarps; ++w) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            c[k] += partial[w][k];
-            g[k] += partial[w][K + k];
-          }
-          any_valid |= partial[w][2 * K] != 0.0f;
-        }
+      if (has_row && member == 0 && any_valid) {
+        const unsigned fw = flag_words[row];
+        flags[idx] = decide<K>(c, g, fw & kmask, (fw >> 16) & kmask, margin,
+                               use_gate, gq_floor)
+                         ? 1
+                         : 0;
       }
     }
-    if (active && member == 0) {
-      bool cand = false;
-      if (work && any_valid)
-        cand = decide<K>(c, g, iv, sa, margin, use_gate, gq_floor);
-      out[row] = cand ? 1 : 0;
+    __syncwarp();
+    if (word_store) {
+      const int64_t r = base + 4 * lane;
+      if (4 * lane < group_rows) {
+        if (r + 4 <= L) {
+          *reinterpret_cast<uint32_t*>(out + r) =
+              reinterpret_cast<const uint32_t*>(flags)[lane];
+        } else {
+          for (int j = 0; j < 4; ++j)
+            if (r + j < L) out[r + j] = flags[4 * lane + j];
+        }
+      }
+    } else {
+      for (int idx = lane; idx < group_rows; idx += 32)
+        if (base + idx < L) out[base + idx] = flags[idx];
     }
-    if (block_row) __syncthreads();  // `partial` is rewritten by the next row
+    __syncwarp();  // the lists are rewritten for the next group
   }
+}
+
+// The step of a row D deep: 16 elements where D allows, else 8, 4 or 1.
+// It depends on D alone, so both encodings of a tile are cut alike.
+int step_of(int D) {
+  return D % 16 == 0 ? 16 : D % 8 == 0 ? 8 : D % 4 == 0 ? 4 : 1;
 }
 
 template <typename PackT, bool kTumor, int K>
@@ -325,21 +442,33 @@ cudaError_t launch(const void* pack, const void* mapq, const void* flag_words,
                    const QualTable& qt, int64_t L, int D, int n_alleles,
                    float margin, bool use_gate, float gq_floor, void* out,
                    cudaStream_t stream) {
-  const bool block_row = D >= kDeepRow;
-  int team = 2;
-  while (team < 32 && team * 8 <= D) team *= 2;  // D/4 lanes, 2..32
-  const uintptr_t p = reinterpret_cast<uintptr_t>(pack);
-  const uintptr_t m = reinterpret_cast<uintptr_t>(mapq);
-  const bool vec4 = D % 4 == 0 && p % (4 * sizeof(PackT)) == 0 &&
-                    (!kTumor || m % 4 == 0);
-  const int64_t rows_per_block = block_row ? 1 : kThreads / team;
-  int64_t blocks = (L + rows_per_block - 1) / rows_per_block;
+  const int step = step_of(D);
+  const int n_steps = D / step;
+  // One thread per row up to kThreadRowDepth; beyond it the largest team of
+  // 2..32 lanes that leaves every lane two steps.
+  int team_log2 = 0;
+  if (D > kThreadRowDepth)
+    while (team_log2 < 5 && (4 << team_log2) <= n_steps) ++team_log2;
+  // Rows a warp screens at once. With one thread a row, 128: about one
+  // round of 32 of them is live on a main-path tile, so the lanes are busy.
+  // A team fills its lanes whatever is live, so a warp of teams takes one
+  // round of rows and more warps run side by side (on the card a warp a row
+  // took a 10,240 x 1,024 tile in 0.061 ms with groups of one row, 0.151 ms
+  // with groups of 16). Fewer, down to one round, while the tile is too
+  // small to give every SM its warps.
+  const int rows_per_round = 32 >> team_log2;
+  int group_rows = team_log2 == 0 ? kMaxGroupRows : rows_per_round;
+  while (group_rows > rows_per_round &&
+         L < static_cast<int64_t>(group_rows) * kWantedWarps)
+    group_rows >>= 1;
+  const int64_t n_groups = (L + group_rows - 1) / group_rows;
+  int64_t blocks = (n_groups + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   ll_screen_kernel<PackT, kTumor, K>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const PackT*>(pack), static_cast<const uint8_t*>(mapq),
-          static_cast<const uint32_t*>(flag_words), qt, L, D, n_alleles, team,
-          block_row, vec4, margin, use_gate, gq_floor,
+          static_cast<const uint32_t*>(flag_words), qt, L, D, n_alleles, step,
+          team_log2, group_rows, margin, use_gate, gq_floor,
           static_cast<uint8_t*>(out));
   return cudaGetLastError();
 }
@@ -367,7 +496,8 @@ extern "C" {
 // phred values in HOST memory, copied into the launch parameters) or 2
 // (uint16 form; qvals is ignored). mapq: null for the germline form.
 // min_phred > 0 turns the GQ gate on (germline form only). out [L] uint8 is
-// written for every row.
+// written for every row. pack and mapq must be aligned to the bytes of one
+// step of a row (see step_of), at most 16.
 int guac_ll_screen(const void* pack, int pack_bytes, const void* mapq,
                    const void* qvals, int n_qvals, const void* flag_words,
                    int64_t L, int64_t D, int K, float margin, float min_phred,
@@ -385,6 +515,13 @@ int guac_ll_screen(const void* pack, int pack_bytes, const void* mapq,
   }
   if (L <= 0) return static_cast<int>(cudaGetLastError());  // empty grid
   const bool tumor = mapq != nullptr;
+  // A step is read with one or two vector loads: the planes must be
+  // aligned to a step's bytes, or to 16 where a step is longer.
+  const int step = step_of(static_cast<int>(D));
+  const int pack_align = step * pack_bytes < 16 ? step * pack_bytes : 16;
+  if (reinterpret_cast<uintptr_t>(pack) % pack_align != 0 ||
+      (tumor && reinterpret_cast<uintptr_t>(mapq) % (step < 16 ? step : 16) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool use_gate = !tumor && min_phred > 0.0f;
   // min_phred - 2 in double, then narrowed: as the other forms compute it.
   const float gq_floor =

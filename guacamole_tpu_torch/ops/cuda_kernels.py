@@ -15,6 +15,7 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -34,10 +35,29 @@ LL_FORM_LAUNCHES = {
 }
 
 
+# The shapes of the launches since the last reset (the newest 4096 of each
+# kernel), from the wrappers' arguments: (rows, blob bytes), (rows, cap),
+# (rows, D, form) and (rows, D, with likelihoods). A run can say from these
+# at which shapes its main path really launches.
+LAUNCH_SHAPES = {name: collections.deque(maxlen=4096) for name in LAUNCHES}
+
+# The counting kernel addresses the blob in int32, with room for 16 bytes of
+# alignment.
+MAX_BLOB_BYTES = 2**31 - 17
+
+
 def reset_launches() -> None:
     for table in (LAUNCHES, LL_FORM_LAUNCHES):
         for name in table:
             table[name] = 0
+    for shapes in LAUNCH_SHAPES.values():
+        shapes.clear()
+
+
+def ll_step(depth_slots: int) -> int:
+    """The elements of a row that the ll_screen kernel reads at once (16
+    where D allows, else 8, 4 or 1): step_of in ops/csrc/ll_screen.cu."""
+    return next((e for e in (16, 8, 4) if depth_slots % e == 0), 1)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -89,6 +109,12 @@ def csr_count_screen(
     kernels.check_alleles(max_alleles)
     if threshold_percent is not None and threshold_percent < 0:
         raise ValueError(f"threshold_percent must be >= 0, got {threshold_percent}")
+    if blob.numel() > MAX_BLOB_BYTES:
+        raise ValueError(
+            f"blob has {blob.numel()} bytes: the counting screen takes at "
+            f"most 2^31 - 17 = {MAX_BLOB_BYTES} (int32 offsets); split it "
+            f"into slabs"
+        )
     dev = _device_of(blob, row_off, variant_words)
     if dev.type == "cpu":
         return kernels.csr_count_screen(
@@ -101,14 +127,15 @@ def csr_count_screen(
     lib = load_kernels()
     with torch.cuda.device(dev):
         rc = lib.guac_csr_count_screen(
-            blob.data_ptr(), row_off.data_ptr(), variant_words.data_ptr(),
-            L, max_alleles,
+            blob.data_ptr(), blob.numel(), row_off.data_ptr(),
+            variant_words.data_ptr(), L, max_alleles,
             -1 if threshold_percent is None else int(threshold_percent),
             counts.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "csr_count_screen")
     LAUNCHES["csr_count_screen"] += 1
+    LAUNCH_SHAPES["csr_count_screen"].append((L, blob.numel()))
     return counts, flags
 
 
@@ -142,6 +169,7 @@ def csr_compact(
         )
     _raise_on(rc, "csr_compact")
     LAUNCHES["csr_compact"] += 1
+    LAUNCH_SHAPES["csr_compact"].append((L, cap))
     return out
 
 
@@ -195,6 +223,19 @@ def ll_screen(
     kernels.check_alleles(max_alleles)
     if D < 1:
         raise ValueError("ll_pack needs at least one depth slot")
+    # The kernel reads a row in steps of ll_step(D) elements, each with one
+    # or two vector loads: a plane must be aligned to a step's bytes (at
+    # most 16). Tensors that torch allocated are; a view that starts inside
+    # a row is not.
+    for name, plane in (("ll_pack", ll_pack), ("ll_mapq", ll_mapq)):
+        if plane is None:
+            continue
+        align = min(16, ll_step(D) * plane.element_size())
+        if plane.data_ptr() % align:
+            raise ValueError(
+                f"{name}: [L, {D}] {plane.dtype} must start at a multiple of "
+                f"{align} bytes, got address {plane.data_ptr():#x}"
+            )
     dev = _device_of(*tensors)
     if dev.type == "cpu":
         return kernels.ll_screen(
@@ -216,11 +257,12 @@ def ll_screen(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(rc, "ll_screen")
+    form = ("germline" if ll_mapq is None else "tumor") + (
+        "_u16" if qvals is None else "_u8"
+    )
     LAUNCHES["ll_screen"] += 1
-    LL_FORM_LAUNCHES[
-        ("germline" if ll_mapq is None else "tumor")
-        + ("_u16" if qvals is None else "_u8")
-    ] += 1
+    LL_FORM_LAUNCHES[form] += 1
+    LAUNCH_SHAPES["ll_screen"].append((L, D, form))
     return out
 
 
@@ -309,4 +351,5 @@ def stats_ll(
         )
     _raise_on(rc, "stats_ll")
     LAUNCHES["stats_ll"] += 1
+    LAUNCH_SHAPES["stats_ll"].append((L, D, bool(with_likelihoods)))
     return kernels.TileStatsLL(counts, fwd, depth, cand, ll)

@@ -23,7 +23,7 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 
 
 def port_sources():
-    paths = [SMOKE]
+    paths = [SMOKE, os.path.join(ROOT, "chip_tune.py")]
     for dirpath, _dirs, files in os.walk(PKG):
         paths += [
             os.path.join(dirpath, name)

@@ -17,7 +17,7 @@ import torch
 from guacamole_tpu.ops import dispatch as jax_dispatch
 from guacamole_tpu.ops import kernels as jax_kernels
 from guacamole_tpu.ops.pallas_kernels import pallas_csr_screen
-from guacamole_tpu_torch.ops import cuda_kernels
+from guacamole_tpu_torch.ops import cuda_kernels, edge_shapes
 from guacamole_tpu_torch.ops import kernels as port
 from guacamole_tpu_torch.ops.dispatch import wire_from_numpy
 
@@ -275,6 +275,117 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cuda_kernels.csr_compact(
             torch.zeros(10, dtype=torch.bool), counts.t(), 4
         )
+
+
+CSR_EDGE_NAMES = [case[0] for case in edge_shapes.csr_edge_cases()]
+
+
+@pytest.mark.parametrize("name", CSR_EDGE_NAMES)
+def test_edge_shapes_bit_equal_to_jax(name):
+    """The tiles chip_smoke.py gives the counting kernel at the edges of its
+    routes (ops/edge_shapes.py), through the wrapper on the CPU, unpadded
+    and as a slice that starts at an odd byte of a larger tensor."""
+    K = 8
+    (blob, row_off, is_variant), = [
+        case[1:] for case in edge_shapes.csr_edge_cases(K) if case[0] == name
+    ]
+    assert row_off[-1] == len(blob) or name.endswith("padded blob")
+    words = t(port.pack_variant_words16(is_variant))
+    sliced = torch.cat([torch.zeros(3, dtype=torch.uint8), t(blob)])[3:]
+    assert sliced.data_ptr() % 2 == 1 or len(blob) == 0
+    for threshold_percent in (None, 25):
+        want = jax_kernels.tile_stats_csr(
+            blob, row_off, is_variant, K, threshold_percent=threshold_percent
+        )
+        for tensor in (t(blob), sliced):
+            counts, candidates = cuda_kernels.csr_count_screen(
+                tensor, t(row_off), words, K, threshold_percent
+            )
+            assert counts.dtype == torch.int16
+            np.testing.assert_array_equal(
+                counts.numpy(), np.asarray(want.counts)
+            )
+            np.testing.assert_array_equal(
+                candidates.numpy(), np.asarray(want.candidates)
+            )
+
+
+@pytest.mark.parametrize("reads", [254, 255, 256, 32767, 32768])
+def test_counting_arithmetic_model_at_counter_edges(reads):
+    """The kernel counts 16 bytes at once with a bit transpose and one
+    popcount per allele into int32 counters (no packed fields, nothing to
+    flush). A numpy model of that arithmetic against a plain count, for a
+    row of `reads` reads of one allele: 8 and 16 bits are where a packed or
+    narrowed counter would wrap, and int16 does wrap at 32768, as JAX's
+    astype does."""
+    K = 8
+    nibbles = np.full(reads + reads % 2, 5, np.uint8)
+    if reads % 2:
+        nibbles[-1] = 0xF
+    row = nibbles[0::2] | (nibbles[1::2] << 4)
+    blob = np.concatenate([[0x21, 0x43, 0x05], row, [0x55, 0x50]]).astype(
+        np.uint8
+    )
+    row_off = np.array([0, 3, 3 + len(row), len(blob)], np.int32)
+    is_variant = np.zeros((3, K), bool)
+    want = jax_kernels.tile_stats_csr(blob, row_off, is_variant, K)
+    plain, _ = port.tile_stats_csr(t(blob), t(row_off), t(is_variant), K)
+    model = np.stack([
+        edge_shapes.count_row_model(blob, row_off[r], row_off[r + 1], K)
+        for r in range(3)
+    ])
+    np.testing.assert_array_equal(model, np.asarray(want.counts))
+    np.testing.assert_array_equal(model, plain.numpy())
+    wrapped = (reads + 2**15) % 2**16 - 2**15
+    assert model[1].tolist() == [0, 0, 0, 0, 0, wrapped, 0, 0]
+    assert model[0].tolist() == [1, 1, 1, 1, 1, 1, 0, 0]
+    assert model[2].tolist() == [1, 0, 0, 0, 0, 3, 0, 0]
+
+
+@pytest.mark.parametrize("K", [1, 8, 15])
+def test_counting_arithmetic_model_on_edge_rows(K):
+    """The same model on rows of every edge length, at every alignment the
+    tile gives them, with neighbours that would count if a mask leaked."""
+    rng = np.random.default_rng(K)
+    lengths = [n for n in edge_shapes.CSR_EDGE_ROW_BYTES if n < 3000]
+    blob, row_off, is_variant = edge_shapes.csr_tile(
+        rng, lengths + lengths[::-1], K
+    )
+    plain, _ = port.tile_stats_csr(t(blob), t(row_off), t(is_variant), K)
+    for neighbours in (0x00, 0x11 * (K - 1)):
+        model = np.stack([
+            edge_shapes.count_row_model(
+                blob, row_off[r], row_off[r + 1], K, neighbours)
+            for r in range(len(row_off) - 1)
+        ])
+        np.testing.assert_array_equal(model, plain.numpy())
+
+
+def test_wrapper_refuses_a_blob_beyond_int32_offsets():
+    """The kernel addresses the blob in int32 with room for 16 bytes of
+    alignment. (torch.empty does not touch the 2 GiB it reserves.)"""
+    blob = torch.empty(cuda_kernels.MAX_BLOB_BYTES + 1, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="2\\^31"):
+        cuda_kernels.csr_count_screen(
+            blob, torch.zeros(2, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.uint16), 8,
+        )
+    assert cuda_kernels.MAX_BLOB_BYTES + 17 == 2**31
+
+
+def test_launch_shapes_are_recorded_with_launches_only():
+    """LAUNCH_SHAPES holds one entry per kernel launch: none on the CPU,
+    and reset_launches() empties it."""
+    packed, row_off, is_variant = random_csr(4)
+    wire = wire_from_numpy(packed, row_off, is_variant, CPU)
+    cuda_kernels.LAUNCH_SHAPES["csr_count_screen"].append((1, 2))
+    cuda_kernels.csr_count_screen(
+        wire.blob, wire.row_off, wire.variant_words, 8
+    )
+    assert list(cuda_kernels.LAUNCH_SHAPES["csr_count_screen"]) == [(1, 2)]
+    cuda_kernels.reset_launches()
+    assert all(not v for v in cuda_kernels.LAUNCH_SHAPES.values())
+    assert set(cuda_kernels.LAUNCH_SHAPES) == set(cuda_kernels.LAUNCHES)
 
 
 def test_importing_the_kernels_needs_no_nvcc(tmp_path):

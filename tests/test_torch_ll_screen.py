@@ -16,7 +16,7 @@ import torch
 from guacamole_tpu.ops import dispatch as jax_dispatch
 from guacamole_tpu.ops import kernels as jax_kernels
 from guacamole_tpu.ops.pallas_kernels import pallas_likelihood_screen
-from guacamole_tpu_torch.ops import cuda_kernels, dispatch, kernels
+from guacamole_tpu_torch.ops import cuda_kernels, dispatch, edge_shapes, kernels
 
 CPU = torch.device("cpu")
 K = 8
@@ -376,6 +376,76 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(kwargs, error):
             pack, words, kwargs.get("k", K), ll_qvals=kwargs.get("qvals"),
             ll_mapq=None if mapq is None else t(mapq),
         )
+
+
+@pytest.mark.parametrize("live_share", [0.0, 0.22, 1.0])
+@pytest.mark.parametrize("D", edge_shapes.LL_EDGE_DEPTHS)
+def test_edge_depths_and_live_shares(D, live_share):
+    """The tiles chip_smoke.py gives the kernel at the edges of its routes
+    (ops/edge_shapes.py: depths around the one-thread route and the step
+    widths, tiles with no, some and only live rows, L not a multiple of
+    32), through the wrapper on the CPU: equal to the JAX flags on this
+    seed, the same from both encodings, a superset of the f64 rule."""
+    rng = np.random.default_rng(1000 * D + int(100 * live_share))
+    L = 77
+    pack16, pack8, qvals, mapq, iv, sa = edge_shapes.ll_tile(
+        rng, L, D, K, live_share)
+    live = (iv & sa).any(axis=1)
+    assert live.all() if live_share == 1 else not live.any() if (
+        live_share == 0) else 0 < live.sum() < L
+    for tumor, min_phred in ((False, 0.0), (False, 40.0), (True, 0.0)):
+        mq = mapq if tumor else None
+        wide = port_flags(pack16, mq, iv, sa, min_phred)
+        byte = port_flags(pack8, mq, iv, sa, min_phred, qvals)
+        np.testing.assert_array_equal(byte, wide)
+        assert not wide[~live].any()
+        if tumor:
+            want = jax_kernels.tumor_likelihood_screen(pack16, mq, iv, sa, K)
+        else:
+            want = jax_kernels.germline_likelihood_screen(
+                pack16, iv, sa, K, min_phred=min_phred)
+        np.testing.assert_array_equal(wide, np.asarray(want))
+        c, g, any_valid = kernels.ll_allele_sums(
+            t(pack16), K, None, None if mq is None else t(mq),
+            dtype=torch.float64)
+        parts = kernels.screen_parts(c, g, t(iv), t(sa), K, min_phred)
+        exact = parts.has_var & any_valid & (
+            parts.best_variant >= parts.best_ref)
+        if parts.gq is not None:
+            exact &= ~parts.smax_finite | (parts.gq >= min_phred)
+        assert not (exact.numpy() & ~wide).any()
+
+
+@pytest.mark.parametrize("D, dtype, lead, ok", [
+    (32, np.uint8, 16, True), (32, np.uint8, 8, False),
+    (8, np.uint8, 8, True), (8, np.uint8, 4, False),
+    (15, np.uint8, 1, True), (15, np.uint16, 1, True),
+    (12, np.uint16, 4, True), (12, np.uint16, 1, False),
+])
+def test_wrapper_refuses_a_plane_that_starts_inside_a_step(D, dtype, lead, ok):
+    """The kernel reads a row in steps of ll_step(D) elements with vector
+    loads: a plane must start at a multiple of a step's bytes (at most 16).
+    Slabs cut at whole rows always do; a view that starts `lead` elements
+    into a buffer may not."""
+    assert [cuda_kernels.ll_step(d) for d in (32, 48, 8, 12, 15)] == [
+        16, 16, 8, 4, 1]
+    L = 4
+    size = np.dtype(dtype).itemsize
+    buf = torch.zeros(64 + lead + L * D, dtype=t(np.zeros(1, dtype)).dtype)
+    start = (-buf.data_ptr() // size) % 64 + lead  # 64-byte aligned, + lead
+    pack = buf[start:start + L * D].view(L, D)
+    mapq = torch.zeros((L, D), dtype=torch.uint8)
+    words = torch.zeros(L, dtype=torch.int32)
+    qvals = [30] if dtype == np.uint8 else None
+    if ok:
+        assert not cuda_kernels.ll_screen(pack, words, K, ll_qvals=qvals).any()
+        return
+    with pytest.raises(ValueError, match="must start at a multiple"):
+        cuda_kernels.ll_screen(pack, words, K, ll_qvals=qvals)
+    if dtype == np.uint8:  # the MAPQ plane is held to the same
+        with pytest.raises(ValueError, match="ll_mapq"):
+            cuda_kernels.ll_screen(
+                mapq, words, K, ll_qvals=qvals, ll_mapq=pack)
 
 
 def test_plain_version_counts_no_launch():
