@@ -19,7 +19,11 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     ops/edge_shapes.py at the edges of the counting kernel's routes (row
     lengths on and beside every threshold, empty rows only, long rows
     only, one row, row counts around a warp's and a block's, unpadded
-    blobs, blobs that start at an odd byte of a larger tensor).
+    blobs, blobs that start at an odd byte of a larger tensor) and of the
+    compaction's (no row, one row, lengths on and beside a thread's, a
+    tile's, the one-block route's and a chunk's, no, all, first and last
+    flags set, cap 0, below, at and above the total, flags and counts as
+    views that start 1, 3 and 15 bytes or rows into larger tensors).
     The likelihood screen ll_screen, whose flags come out of f32 sums: all
     four forms (germline/tumor x uint16/uint8) at K in {2, 8, 15}, D in
     {8, 15, 16, 32, 48, 64, 128, 1024, 16384}, min_phred 0 and 40, with
@@ -32,12 +36,17 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     form of one tile. Then one main-path shape (1M rows x D = 32, uint8),
     timed in the germline form and in the tumor form (with its MAPQ plane).
     Both screens are also timed at one row: the launch floor.
-    The fused dense kernel stats_ll: K in {2, 8, 15, 16, 20}, D in {8, 15,
-    64, 1024, 16384}, with and without alignment, thresholds None, 0, 8
-    and 50, with and without the likelihood output, all-empty rows, q = 0
-    elements. Integers with tolerance 0; likelihoods within the tolerance
-    stated at STATS_LL_RTOL, with an f64 evaluation as the arbiter. Then
-    one main-path shape (1M rows x D = 32, K = 8), timed;
+    The fused dense kernel stats_ll: K in {1, 2, 8, 15, 16, 17, 20, 128,
+    256}, D in {8, 15, 64, 1024, 16384}, with and without alignment,
+    thresholds None, 0, 8 and 50, with and without the likelihood output,
+    all-empty rows, q = 0 elements, and the tiles of ops/edge_shapes.py at
+    the edges of its routes (D on and beside every step, batch and team
+    size, row counts around a warp's and a block's share, row slices and
+    views that break the 16-byte alignment). Integers with tolerance 0;
+    likelihoods within the tolerance stated at STATS_LL_RTOL, with an f64
+    evaluation as the arbiter. Then one main-path shape (1M rows x D = 32,
+    K = 8), timed. The compaction and the dense kernel are timed at one
+    row as well;
  4. runs the port's germline-threshold CLI on the 2.37M-read simulated
     fixture (utils/simulate.make_scale_fixture, scale 1.0, seed 2026) with
     device screens, checks that both counting kernels launched, that the
@@ -244,20 +253,27 @@ def _csr_tile_of(device, rows, blob_bytes):
 
 def _time_ms(fn, reps):
     """Device time of one call, from events around runs of calls. The card
-    first spins for as long as the host may take to enqueue a run (about
-    60 us a call), so the calls run back to back on the device and a kernel
-    shorter than its wrapper's host time is not timed by the host. With 50
-    calls or more they are made in five runs and the median run counts, so
-    one stall of the host does not show."""
+    first spins for as long as the host may take to enqueue a run (twice
+    what a few calls just took it, at least 60 us a call), so the calls run
+    back to back on the device and a kernel shorter than its wrapper's host
+    time is not timed by the host. With 50 calls or more they are made in
+    five runs and the median run counts, so one stall of the host does not
+    show."""
     fn()
     torch.cuda.synchronize()
     runs = 5 if reps >= 50 else 1
     per_run = reps // runs
+    t0 = time.perf_counter()
+    for _ in range(min(per_run, 10)):
+        fn()
+    host_s = (time.perf_counter() - t0) / min(per_run, 10)
+    torch.cuda.synchronize()
+    spin_s = min(0.2, per_run * max(60e-6, 2 * host_s))
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(per_run * 60e-6 * 2e9))
+        torch.cuda._sleep(int(spin_s * 2e9))
         start.record()
         for _ in range(per_run):
             fn()
@@ -390,6 +406,35 @@ def check_kernels(device) -> dict:
                 for t in (None, 25):
                     screen_both(blob, off, words, K, t)
                     n_edge += 1
+    # (f) the edges of the compaction's routes (ops/edge_shapes.py): every
+    # length with cap 0, below, at and above the total, the flags as a view
+    # that starts 0, 1, 3 and 15 bytes into a larger tensor and the counts
+    # as one that starts as many rows into theirs.
+    n_compact_edge = 0
+    for K in (1, 8, 15):
+        for name, flags_np, counts_np in edge_shapes.compact_edge_cases(
+                K, big=K == 8):
+            total = int(flags_np.sum())
+            big = len(flags_np) > 1 << 20
+            for lead in (0, 15) if big or K != 8 else edge_shapes.COMPACT_LEADS:
+                flags = edge_shapes.view_into_larger(
+                    torch.from_numpy(flags_np).to(device), lead, True)
+                counts = edge_shapes.view_into_larger(
+                    torch.from_numpy(counts_np).to(device), lead, 77)
+                check(flags.numel() == 0 or flags.data_ptr() % 16 == lead,
+                      f"compaction edge {name!r}: view not {lead} bytes in")
+                for cap in edge_shapes.compact_caps(total):
+                    raw = compact_both(flags, counts, cap)
+                    check(int(raw[cap, 0]) == total,
+                          f"compaction edge {name!r}: footer != total")
+                    n_compact_edge += 1
+    # A two-pass length with a cap that its candidates overflow.
+    flags_np, counts_np = edge_shapes.compact_tile(rng, 50_000, 8)
+    flags, counts = (torch.from_numpy(a).to(device)
+                     for a in (flags_np, counts_np))
+    check(torch.equal(ck.csr_compact(flags, counts, 600),
+                      plain.compact_candidates(flags, counts, 600)),
+          "csr_compact at 50,000 rows")
     torch.cuda.synchronize()
     # (b) the main-path megatile, timed.
     mega = _time_counting(device, *_megatile(device))
@@ -404,6 +449,12 @@ def check_kernels(device) -> dict:
         lambda: ck.csr_count_screen(blob1, off1, words1, 8, 25), 200)
     host_ms = _host_call_ms(
         lambda: ck.csr_count_screen(blob1, off1, words1, 8, 25))
+    counts1, flags1 = ck.csr_count_screen(blob1, off1, words1, 8, None)
+    compact_both(flags1, counts1, 512)
+    compact_floor_ms = _time_ms(
+        lambda: ck.csr_compact(flags1, counts1, 512), 200)
+    compact_host_ms = _host_call_ms(
+        lambda: ck.csr_compact(flags1, counts1, 512))
     print(
         f"megatile: {mega['rows']} rows, {mega['blob_bytes']} blob bytes, "
         f"{mega['candidates']} candidates at --threshold 25, cap "
@@ -418,7 +469,10 @@ def check_kernels(device) -> dict:
         f"{mega['csr_count_screen']['bytes'] / mega['csr_count_screen']['ms'] / 1e6:.1f}"
         f" GB/s; at L = 1 (the launch floor) {floor_ms:.4f} ms on the "
         f"device, {host_ms:.4f} ms of host time a call; "
-        f"{n_edge} edge launches equal to the plain version",
+        f"{n_edge} edge launches equal to the plain version; csr_compact "
+        f"at L = 1 (cap 512) {compact_floor_ms:.4f} ms on the device, "
+        f"{compact_host_ms:.4f} ms of host time a call; "
+        f"{n_compact_edge} edge launches equal to the plain version",
         flush=True,
     )
     # No single PyTorch call counts nibbles per CSR row, and torch.nonzero
@@ -440,6 +494,9 @@ def check_kernels(device) -> dict:
     records["csr_count_screen"]["floor_ms"] = floor_ms
     records["csr_count_screen"]["host_call_ms"] = host_ms
     records["csr_count_screen"]["edge_launches"] = n_edge
+    records["csr_compact"]["floor_ms"] = compact_floor_ms
+    records["csr_compact"]["host_call_ms"] = compact_host_ms
+    records["csr_compact"]["edge_launches"] = n_compact_edge
     return records
 
 
@@ -777,32 +834,6 @@ def _stats_ll_atol(D: int) -> float:
     return 2e-5 * max(1.0, D / 16)
 
 
-def _dense_tile(rng, L, D, K):
-    """A random dense tile as the numpy arrays the dispatch stages: rows of
-    depth 0..D (one row in 16 empty), a row's alleles drawn with an alt
-    share of 0, 1%, 20%, 50% or 100%, a few valid elements that belong to
-    no allele, quals 0..45 with q = 0 and q = 93 among them, MAPQs that
-    include 0."""
-    depth = rng.integers(0, D + 1, size=L)
-    depth[rng.random(L) < 1 / 16] = 0
-    valid = np.arange(D)[None, :] < depth[:, None]
-    alt_share = rng.choice([0.0, 0.01, 0.2, 0.5, 1.0], size=(L, 1))
-    alt = rng.integers(1, K, size=(L, D))
-    aid = np.where(rng.random((L, D)) < alt_share, alt, 0)
-    aid[rng.random((L, D)) < 0.002] = K + 1
-    aid[rng.random((L, D)) < 0.002] = -1
-    aid = np.where(valid, aid, -1).astype(np.int16)
-    qual = rng.integers(0, 46, size=(L, D))
-    qual[rng.random((L, D)) < 0.001] = 93
-    qual = np.where(valid, qual, 0).astype(np.int16)
-    mapq = np.where(
-        valid, rng.choice([0, 10, 37, 60, 254], size=(L, D)), 0
-    ).astype(np.int16)
-    strand = valid & (rng.random((L, D)) < 0.5)
-    is_variant = rng.random((L, K)) < 0.4
-    return aid, qual, mapq, strand, valid, is_variant
-
-
 def _check_stats_ll_case(ck, plain, wire, K, align, thr, with_ll, what, err):
     """One launch against the plain version; updates err in place."""
     got = ck.stats_ll(
@@ -847,12 +878,13 @@ def _check_stats_ll_case(ck, plain, wire, K, align, thr, with_ll, what, err):
 
 def _main_path_dense_tile(device, L=1 << 20, D=32, K=8, seed=2026):
     """A main-path dense tile made on the device: 1M rows at about 25x
-    (depth capped at D = 32), allele 0 the reference, errors to alleles
+    (depth capped at D = 32; at another D the mean depth is 25/32 of it, as
+    the likelihood tile's is), allele 0 the reference, errors to alleles
     1..3 in 1% of reads, one het row in 1500, quals 20..41, MAPQ 60,
     alleles 1..3 variants."""
     g = torch.Generator(device=device).manual_seed(seed)
     depth = torch.poisson(
-        torch.full((L,), 25.0, device=device), generator=g
+        torch.full((L,), 25.0 * D / 32, device=device), generator=g
     ).clamp_(0, D).to(torch.int32)
     valid = torch.arange(D, device=device)[None, :] < depth[:, None]
     u = torch.rand((L, D), generator=g, device=device)
@@ -873,20 +905,44 @@ def _main_path_dense_tile(device, L=1 << 20, D=32, K=8, seed=2026):
     )
 
 
+_DENSE_PLANES = ("allele_id", "qual", "mapq", "strand", "valid", "is_variant")
+
+
+def _stats_ll_bound(rows, D, K, n_valid, with_ll):
+    """(bound_ms, bound_by, bytes, operations) of stats_ll without
+    alignment on a tile with n_valid elements. Bytes: the valid plane in
+    full (1 B a slot), allele_id and strand (3 B) of the valid elements
+    only, with likelihoods their qual too (2 B; mapq is not needed without
+    alignment), is_variant, and the outputs: counts, forward counts, depth
+    and flag, and the P pair likelihoods. Operations: three integer
+    additions an element; with likelihoods 1 subtraction, 3 sums and 3 logs
+    for the terms, 3 f32 and 3 integer additions an element, and K
+    additions per row and pair."""
+    P = K * (K + 1) // 2
+    n_bytes = rows * D + 3 * n_valid + rows * K + rows * (8 * K + 5)
+    n_ops = n_valid * 3
+    if with_ll:
+        n_bytes += 2 * n_valid + rows * 4 * P
+        n_ops = n_valid * 13 + rows * P * K
+    return (*_bound_ms(n_bytes, n_ops), n_bytes, n_ops)
+
+
 def check_stats_ll(device) -> dict:
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import kernels as plain
     from guacamole_tpu_torch.ops.dispatch import dense_wire_from_numpy
+    from guacamole_tpu_torch.ops.edge_shapes import (
+        dense_edge_cases, dense_tile, view_into_larger)
 
     rng = np.random.default_rng(2026)
     err = {"abs": 0.0, "entries": 0, "arbitrated": 0}
     thresholds = (None, 0, 8, 50)
     launches = 0
-    for K in (2, 8, 15, 16):
+    for K in (1, 2, 8, 15, 16, 17):
         for D, L in ((8, 8192), (15, 4096), (64, 4096), (1024, 512),
                      (16384, 64)):
             wire = dense_wire_from_numpy(
-                *_dense_tile(rng, L, D, K), device=device)
+                *dense_tile(rng, L, D, K), device=device)
             for a, align in enumerate((False, True)):
                 for i, thr in enumerate(thresholds):
                     what = f"K={K} D={D} alignment={align} threshold={thr}"
@@ -899,10 +955,40 @@ def check_stats_ll(device) -> dict:
                             ck, plain, wire, K, align, thr, True, what, err)
                         launches += 1
                     launches += 1
-    # More alleles than the two register budgets: the row is walked once
-    # per 16 alleles.
-    wire = dense_wire_from_numpy(*_dense_tile(rng, 512, 64, 20), device=device)
+    # More alleles than the screens take, up to the wrapper's limit: only
+    # the threads of a block change.
+    wire = dense_wire_from_numpy(*dense_tile(rng, 512, 64, 20), device=device)
     _check_stats_ll_case(ck, plain, wire, 20, True, 8, True, "K=20 D=64", err)
+    wire = dense_wire_from_numpy(*dense_tile(rng, 40, 32, 256), device=device)
+    _check_stats_ll_case(ck, plain, wire, 256, False, 8, False, "K=256", err)
+    wire = dense_wire_from_numpy(*dense_tile(rng, 40, 32, 128), device=device)
+    _check_stats_ll_case(ck, plain, wire, 128, False, 8, True, "K=128", err)
+    launches += 3
+    # The edges of the kernel's routes (ops/edge_shapes.py): each tile with
+    # and without likelihoods and alignment, then as row slices and as views
+    # that start 1 and 3 elements into larger tensors, which break the
+    # 16-byte alignment of the vector loads.
+    for name, K, tile in dense_edge_cases():
+        wire = dense_wire_from_numpy(*tile, device=device)
+        for with_ll, align, thr in ((False, False, 25), (True, False, None),
+                                    (True, True, 8)):
+            _check_stats_ll_case(
+                ck, plain, wire, K, align, thr, with_ll, name, err)
+            launches += 1
+        views = [("rows 1..", SimpleNamespace(**{
+            key: getattr(wire, key)[1:] for key in _DENSE_PLANES}))]
+        for lead in (1, 3):
+            views.append((f"{lead} elements in", SimpleNamespace(**{
+                key: view_into_larger(
+                    getattr(wire, key).reshape(-1), lead
+                ).view(getattr(wire, key).shape)
+                for key in _DENSE_PLANES})))
+        for what, view in views:
+            _check_stats_ll_case(ck, plain, view, K, True, 8, True,
+                                 f"{name}, {what}", err)
+            _check_stats_ll_case(ck, plain, view, K, False, None, False,
+                                 f"{name}, {what}", err)
+            launches += 2
     # A tile of nothing but empty slots, and an empty tile.
     blank = dense_wire_from_numpy(
         np.full((300, 32), -1, np.int16), np.zeros((300, 32), np.int16),
@@ -924,7 +1010,6 @@ def check_stats_ll(device) -> dict:
     tile = _main_path_dense_tile(device)
     L, D = tile.allele_id.shape
     K = tile.is_variant.shape[1]
-    P = K * (K + 1) // 2
     _check_stats_ll_case(
         ck, plain, tile, K, False, None, True, "main-path tile", err)
     _check_stats_ll_case(
@@ -941,25 +1026,36 @@ def check_stats_ll(device) -> dict:
     k2 = _time_ms(call(ck.stats_ll, True), 50)
     p2 = _time_ms(call(plain.stats_ll_math, True), 3)
     ps = _time_ms(call(plain.stats_ll_math, False), 3)
+    # The launch floor: one row, as the screens call it and with likelihoods.
+    one = SimpleNamespace(**{
+        key: getattr(tile, key)[:1] for key in _DENSE_PLANES})
+    floors = {}
+    for with_ll in (False, True):
+        _check_stats_ll_case(ck, plain, one, K, False, 25, with_ll,
+                             "one row", err)
+        floors[with_ll] = _time_ms(
+            lambda: ck.stats_ll(one.allele_id, one.qual, one.mapq, one.strand,
+                                one.valid, one.is_variant, K, False, 25,
+                                with_ll), 200)
+    host_ms = _host_call_ms(
+        lambda: ck.stats_ll(one.allele_id, None, None, one.strand, one.valid,
+                            one.is_variant, K, False, 25, False))
     n_valid = int(tile.valid.sum())
-    # Bytes: allele_id, qual (int16), strand, valid (1 B) per slot; mapq is
-    # not needed without alignment; is_variant; the five outputs.
-    n_bytes = L * D * 6 + L * K + L * (8 * K + 5 + 4 * P)
-    # Operations of this design: per valid element 1 subtraction, 3 sums and
-    # 3 logs for the terms, 3 f32 and 3 integer additions; per row and pair
-    # K additions.
-    n_ops = n_valid * 13 + L * P * K
-    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
-    screen_bytes = L * D * 4 + L * K + L * (8 * K + 5)
-    screen_bound, screen_by = _bound_ms(screen_bytes, n_valid * 3)
+    bound_ms, bound_by, n_bytes, n_ops = _stats_ll_bound(
+        L, D, K, n_valid, True)
+    screen_bound, screen_by, screen_bytes, _ = _stats_ll_bound(
+        L, D, K, n_valid, False)
     print(
         f"dense tile: {L} rows x D={D}, K={K}, {n_valid} valid elements; "
         f"stats_ll kernel {(k1 + k2) / 2:.4f} ms, plain "
         f"{(p1 + p2) / 2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{n_bytes} bytes, {n_ops} operations); without likelihoods (the "
         f"screens' call) kernel {s1:.4f} ms, plain {ps:.4f} ms, bound "
-        f"{screen_bound:.4f} ms ({screen_by}: {screen_bytes} bytes); "
-        f"integers equal to the plain version in {launches + 4} launches; "
+        f"{screen_bound:.4f} ms ({screen_by}: {screen_bytes} bytes); at "
+        f"L = 1 (the launch floor) {floors[False]:.4f} ms on the device "
+        f"({floors[True]:.4f} with likelihoods), {host_ms:.4f} ms of host "
+        f"time a call; "
+        f"integers equal to the plain version in {launches + 6} launches; "
         f"likelihoods: largest |kernel - plain| {err['abs']:.3g} over "
         f"{err['entries']} finite entries, tolerance "
         f"{STATS_LL_RTOL:g} * |x| + 2e-5 * max(1, D/16), "
@@ -976,6 +1072,11 @@ def check_stats_ll(device) -> dict:
             "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ms_without_likelihoods": s1,
+            "plain_ms_without_likelihoods": ps,
+            "bound_ms_without_likelihoods": screen_bound,
+            "floor_ms": floors[False],
+            "floor_ms_with_likelihoods": floors[True],
+            "host_call_ms": host_ms, "launches_checked": launches + 6,
             # No single PyTorch call computes counts, flags and pair
             # likelihoods of a tile.
             "library_ms": None,
@@ -1083,6 +1184,7 @@ DEFAULT_LAUNCH_SHAPES = {
     ("germline-standard", "ll_screen"): (114_688, 32, "germline_u8"),
     ("somatic-standard", "ll_screen"): (10_240, 1024, "tumor_u8"),
     ("germline-threshold dense", "stats_ll"): (114_688, 32, False),
+    ("somatic-standard dense", "stats_ll"): (16_384, 1024, False),
 }
 
 
@@ -1111,8 +1213,10 @@ def _describe_shapes(path) -> str:
             values = sorted(sh[i] for sh in shapes)
             text.append(f"{column} {values[0]} / "
                         f"{values[(len(values) - 1) // 2]} / {values[-1]}")
+        smallest = min(shapes, key=lambda sh: _launch_size(kernel, sh))
         parts.append(
             f"{kernel} x{len(shapes)}: " + ", ".join(text)
+            + f", smallest launch {smallest}"
             + f", median launch {_median_launch(kernel, shapes)}")
     return "launch shapes (min / median / max): " + "; ".join(parts)
 
@@ -1178,8 +1282,25 @@ def time_at_launch_shapes(device, records: dict) -> None:
         line(f"ll_screen ({path})", (rows, D, form), origin, timed,
              records.get("ll_screen", {}).get(prefix + "floor_ms"))
     # The fused dense kernel as the dense route's screens call it.
-    (rows, D, with_ll), origin = median_of(
-        "germline-threshold dense", "stats_ll")
+    for path, prefix in (("germline-threshold dense", ""),
+                         ("somatic-standard dense", "somatic_")):
+        (rows, D, with_ll), origin = median_of(path, "stats_ll")
+        timed = _time_stats_ll(device, rows, D, with_ll)
+        if "stats_ll" in records:
+            keep(records["stats_ll"], prefix, (rows, D, with_ll), origin,
+                 timed)
+        line(f"stats_ll ({path})", (rows, D, with_ll), origin, timed,
+             records.get("stats_ll", {}).get(
+                 "floor_ms_with_likelihoods" if with_ll else "floor_ms"))
+
+
+def _time_stats_ll(device, rows, D, with_ll):
+    """stats_ll on one main-path dense tile (K = 8, --threshold 25, no
+    alignment): held to its plain version, then timed in turns (plain,
+    kernel, kernel, plain) and with a cold L2, with its bound."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import kernels as plain
+
     tile = _main_path_dense_tile(device, L=rows, D=D)
     K = tile.is_variant.shape[1]
     err = {"abs": 0.0, "entries": 0, "arbitrated": 0}
@@ -1195,22 +1316,11 @@ def time_at_launch_shapes(device, records: dict) -> None:
     k1 = _time_ms(call(ck.stats_ll), 50)
     k2 = _time_ms(call(ck.stats_ll), 50)
     p2 = _time_ms(call(plain.stats_ll_math), 3)
-    n_valid = int(tile.valid.sum())
-    P = K * (K + 1) // 2
-    if with_ll:  # as check_stats_ll counts them
-        n_bytes = rows * D * 6 + rows * K + rows * (8 * K + 5 + 4 * P)
-        n_ops = n_valid * 13 + rows * P * K
-    else:
-        n_bytes = rows * D * 4 + rows * K + rows * (8 * K + 5)
-        n_ops = n_valid * 3
-    bound_ms, bound_by = _bound_ms(n_bytes, n_ops)
-    timed = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-             "cold_ms": _time_cold_ms(call(ck.stats_ll), device),
-             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
-    if "stats_ll" in records:
-        keep(records["stats_ll"], "", (rows, D, with_ll), origin, timed)
-    line("stats_ll (dense germline-threshold)", (rows, D, with_ll), origin,
-         timed)
+    bound_ms, bound_by, n_bytes, _ = _stats_ll_bound(
+        rows, D, K, int(tile.valid.sum()), with_ll)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "cold_ms": _time_cold_ms(call(ck.stats_ll), device),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes}
 
 
 def make_fixture():

@@ -13,9 +13,12 @@ Every variant is compiled with the flags of ops/build.py (all at once),
 must give the same outputs as the base on the timed tiles, and is timed in
 turns with it (base, variants, base, variants, ...) at the shapes
 chip_smoke.py times: the megatile and a main-path launch shape for the
-counting screen, 1M x 32 and the launch shapes for both forms of the
-likelihood screen. Times are device times, back to back and with a cold
-L2 cache (see chip_smoke._time_ms and _time_cold_ms). Two cards differ, so compare only within one call: the card's name and power
+counting screen and the compaction, 1M x 32 and the launch shapes for both
+forms of the likelihood screen, and for the fused dense kernel 1M x 32,
+114,688 x 32, two deep tiles, K = 20 and tiles of 2,048, 128 and one row,
+each with and without likelihoods. Times are device times, back to back
+and with a cold L2 cache (see chip_smoke._time_ms and _time_cold_ms). Two
+cards differ, so compare only within one call: the card's name and power
 limit are printed first.
 """
 
@@ -111,11 +114,24 @@ def _cases(device, source):
                 device, *chip_smoke.DEFAULT_LAUNCH_SHAPES[
                     ("germline-threshold", "csr_count_screen")]),
         }
-        return [
-            (f"csr_count_screen, {what}",
-             lambda t=t: ck.csr_count_screen(*t, 8, 25))
-            for what, t in tiles.items()
-        ]
+        out = []
+        for what, t in tiles.items():
+            out.append((f"csr_count_screen, {what}",
+                        lambda t=t: ck.csr_count_screen(*t, 8, 25)))
+            counts, flags = ck.csr_count_screen(*t, 8, 25)
+            cap = max(512, flags.numel() // 256)
+            out.append((f"csr_compact, {what} ({flags.numel()} rows, cap "
+                        f"{cap})",
+                        lambda f=flags, c=counts, cap=cap: (
+                            ck.csr_compact(f, c, cap),)))
+        # One row (the launch floor), and around the length where the
+        # one-block route ends.
+        counts, flags = ck.csr_count_screen(*tiles["launch shape"], 8, 25)
+        for rows in (1, 14_336, 32_768, 32_769, 65_536, 196_608):
+            out.append((f"csr_compact, {rows} rows",
+                        lambda f=flags[:rows], c=counts[:rows]: (
+                            ck.csr_compact(f, c, 512),)))
+        return out
     if source == "ll_screen.cu":
         out = []
         shapes = {"1M x 32": (1 << 20, 32)}
@@ -138,7 +154,44 @@ def _cases(device, source):
                         p, w, 8, 0.5, 0.0, ll_qvals=q, ll_mapq=m),),
                 ))
         return out
+    if source == "stats_ll.cu":
+        out = []
+        shapes = {"1M x 32": (1 << 20, 32, 8), "114688 x 32": (114_688, 32, 8),
+                  "10240 x 1024": (10_240, 1024, 8),
+                  "16384 x 1024": (16_384, 1024, 8),
+                  "114688 x 32, K=20": (114_688, 32, 20),
+                  "6144 x 16": (6144, 16, 8), "12288 x 16": (12_288, 16, 8),
+                  "2048 x 8": (2048, 8, 8), "2048 x 32": (2048, 32, 8),
+                  "2048 x 1024": (2048, 1024, 8),
+                  "one row": (1, 32, 8), "128 x 32": (128, 32, 8)}
+        for what, (rows, D, K) in shapes.items():
+            tile = chip_smoke._main_path_dense_tile(device, L=rows, D=D, K=K)
+            for with_ll in (False, True):
+                out.append((
+                    f"stats_ll {'with' if with_ll else 'without'} "
+                    f"likelihoods, {what}",
+                    lambda t=tile, K=K, w=with_ll: ck.stats_ll(
+                        t.allele_id, t.qual, t.mapq, t.strand, t.valid,
+                        t.is_variant, K, False, 25, w),
+                ))
+        return out
     raise SystemExit(f"no timed case for {source}")
+
+
+def _same(got, want) -> bool:
+    """Integers and flags equal; floats (the likelihoods of stats_ll, whose
+    sums two variants may take in another order) within rtol 2e-5 and atol
+    1e-3."""
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            if a is not b:
+                return False
+        elif a.is_floating_point():
+            if not torch.allclose(a, b, rtol=2e-5, atol=1e-3):
+                return False
+        elif not torch.equal(a, b):
+            return False
+    return True
 
 
 def main(argv) -> int:
@@ -170,8 +223,7 @@ def main(argv) -> int:
                         torch.cuda.synchronize()
                         if want is None:
                             want = got
-                        elif not args.no_check and not all(
-                                torch.equal(a, b) for a, b in zip(got, want)):
+                        elif not args.no_check and not _same(got, want):
                             raise SystemExit(
                                 f"{what} [{label}]: outputs differ from base")
                         times[label].append(chip_smoke._time_ms(call, 50))

@@ -110,7 +110,9 @@ def load_kernels() -> SimpleNamespace:
         ptr, i64, ptr, ptr, i64, i32, i32, ptr, ptr, ptr,
     ]
     csr.guac_csr_count_screen.restype = i32
-    csr.guac_csr_compact.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr]
+    csr.guac_csr_compact.argtypes = [
+        ptr, ptr, i64, i32, i32, ptr, ptr, ptr,
+    ]
     csr.guac_csr_compact.restype = i32
     ll.guac_ll_screen.argtypes = [
         ptr, i32, ptr, ptr, i32, ptr, i64, i64, i32, f32, f32, ptr, ptr,

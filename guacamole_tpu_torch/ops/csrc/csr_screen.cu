@@ -86,17 +86,43 @@
 // Replaces the XLA compaction of guacamole_tpu/ops/kernels.py::
 // tile_stats_csr_compact (jnp.nonzero(size=cap) + gather). It is a kernel
 // here because torch.nonzero synchronises the host on every tile, which
-// would serialise the screen pipeline. One block scans the [L] flags in
-// chunks of 1024 threads x 8 flags: per-thread count, warp-shuffle scan,
-// a second warp scan over the 32 warp totals, then each candidate writes its
-// row index and its K counts (widened to int32) at its rank. Output is one
-// [cap+1, K+1] int32 array: candidate rows ascending, -1/0 in unused body
-// rows, and the true candidate total in [cap, 0] so overflow stays visible.
+// would serialise the screen pipeline. Output is one [cap+1, K+1] int32
+// array: candidate rows ascending with their K counts (widened to int32),
+// -1/0 in unused body rows, and the true candidate total in [cap, 0] so
+// overflow stays visible.
 //
-// Bound: latency of one block walking L flags (about 135 chunks for a
-// 1.1M-row megatile: 0.28 ms on an NVIDIA H100 80GB HBM3 at 700 W). A
-// single block is enough for now; a device-wide decoupled look-back
-// scan is the later fix if it shows in a trace.
+// Bound: latency. The data is tiny (one byte a row in, a few thousand
+// candidate rows out), so what counts is how many dependent steps stand
+// between the launch and the last store, and a launch itself.
+//
+// Design: a stream compaction across the whole device, reduce-then-scan in
+// two launches back to back on the caller's stream.
+//  - Pass A. The flags are cut into chunks, one a block: 256 threads x 32
+//    flags (two 16-byte loads a thread), more whole tiles of that size once
+//    the tile would give more than 1,024 blocks. A block counts the flags
+//    set in its chunk (a popcount per thread, one warp reduction) and writes
+//    the count to its place in 1,024 ints of scratch from the wrapper.
+//  - Pass B, the same grid. Every block adds up the block totals itself (at
+//    most four a thread), which gives it the candidates before its chunk
+//    and the total. It reads its chunk again, now in the L2 cache, ranks its
+//    candidates (a bit mask of 32 flags per thread, a shuffle scan inside
+//    the warp, the warp totals through shared memory, one barrier a tile)
+//    and writes row index and counts of those that rank below cap. Since
+//    every block knows the total, the unused body rows [min(total, cap),
+//    cap) are filled by all blocks in shares, with 16-byte stores, and
+//    block 0 writes the footer. Candidate rows lie below min(total, cap)
+//    and fill rows at or above it, so no two blocks write one word.
+//  - No atomics, no state that must be zeroed between launches, the same
+//    output whatever the order of the blocks, and nothing shared between
+//    calls but the scratch, which the wrapper allocates per call.
+//  - Up to 32,768 flags one block of 1,024 threads does all of it in one
+//    launch (the same code with no block totals): a second launch would cost
+//    more than the walk. That route also serves L = 0.
+//  - The flags may start at any byte of a larger tensor: positions count
+//    from their address aligned down to 16 bytes, a thread's 32 flags that
+//    are not all inside [flags, flags + L) are read byte by byte, and no
+//    byte outside is read. ops/edge_shapes.py holds a numpy model of the
+//    partition.
 // ---------------------------------------------------------------------------
 
 #include <cuda_pipeline.h>
@@ -111,8 +137,11 @@ constexpr int kScreenThreads = 128;   // one row per thread
 constexpr int kScreenWarps = kScreenThreads / 32;
 constexpr int kChunkBytes = 2560;     // one of a warp's two staging buffers
 constexpr int kThreadRowBytes = 64;   // a longer part takes the whole warp
-constexpr int kCompactThreads = 1024;
-constexpr int kCompactItems = 8;
+constexpr int kCompactThreads = 256;     // a block of the two-pass route
+constexpr int kOneBlockThreads = 1024;   // the block of the one-block route
+constexpr int kFlagsPerThread = 32;      // two 16-byte loads
+constexpr int kCompactMaxBlocks = 1024;  // a block sums all block totals itself
+constexpr int kOneBlockFlags = 32768;    // up to here: one block, one launch
 
 // The bytes of w lie at a .. a+3: those outside [lo, hi) become the 0xFF pad.
 __device__ __forceinline__ uint32_t pad_outside(uint32_t w, int a, int lo,
@@ -351,68 +380,177 @@ cudaError_t launch_screen(const uint8_t* blob, int64_t n_blob,
   return cudaGetLastError();
 }
 
+// The bytes of w that are not 0, as bits 0..3.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  // Bit 7 of every byte that is not 0, moved down to bits 0, 8, 16, 24; the
+  // product then gathers them in bits 24..27 (no two terms meet, so nothing
+  // carries).
+  const uint32_t h = (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+  return ((h >> 7) * 0x01020408u) >> 24;
+}
+
+// The 32 flags at positions v .. v + 31 as a bit mask, bit j for v + j.
+// Positions count from `base`, the flags' address aligned down to 16 bytes,
+// and v is a multiple of 32, so both loads are aligned. The flags themselves
+// are [lo, hi): a position outside gives 0 and is not read.
+__device__ __forceinline__ uint32_t flag_mask32(const uint8_t* __restrict__ base,
+                                                int64_t v, int64_t lo,
+                                                int64_t hi) {
+  if (v >= hi || v + kFlagsPerThread <= lo) return 0;
+  uint32_t m = 0;
+  if (v >= lo && v + kFlagsPerThread <= hi) {
+    const uint4 a = *reinterpret_cast<const uint4*>(base + v);
+    const uint4 b = *reinterpret_cast<const uint4*>(base + v + 16);
+    m = nonzero_bytes(a.x) | nonzero_bytes(a.y) << 4 |
+        nonzero_bytes(a.z) << 8 | nonzero_bytes(a.w) << 12 |
+        nonzero_bytes(b.x) << 16 | nonzero_bytes(b.y) << 20 |
+        nonzero_bytes(b.z) << 24 | nonzero_bytes(b.w) << 28;
+  } else {  // the head or the tail of the flags
+    for (int j = 0; j < kFlagsPerThread; ++j)
+      if (v + j >= lo && v + j < hi && base[v + j] != 0) m |= 1u << j;
+  }
+  return m;
+}
+
+// Pass A of the two-pass route: block b counts the flags set in its chunk
+// [b * chunk, (b + 1) * chunk) and writes the count to block_total[b].
 __global__ void __launch_bounds__(kCompactThreads)
-    csr_compact_kernel(const uint8_t* __restrict__ flags,
-                       const int16_t* __restrict__ counts, int64_t L, int K,
-                       int cap, int32_t* __restrict__ out) {
-  __shared__ int warp_totals[kCompactThreads / 32];
+    compact_count_kernel(const uint8_t* __restrict__ base, int64_t lo,
+                         int64_t hi, int64_t chunk,
+                         int32_t* __restrict__ block_total) {
+  __shared__ int warp_sum[kCompactThreads / 32];
+  const int t = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  int n = 0;
+  for (int64_t v = c0 + t * kFlagsPerThread; v < c0 + chunk && v < hi;
+       v += kCompactThreads * kFlagsPerThread)
+    n += __popc(flag_mask32(base, v, lo, hi));
+  n = __reduce_add_sync(kFullMask, n);
+  if ((t & 31) == 0) warp_sum[t >> 5] = n;
+  __syncthreads();
+  if (t == 0) {
+    int total = 0;
+    for (int w = 0; w < kCompactThreads / 32; ++w) total += warp_sum[w];
+    block_total[blockIdx.x] = total;
+  }
+}
+
+// Pass B, and the whole of the one-block route (block_total == nullptr, a
+// grid of one block whose chunk is all flags). A block learns the candidates
+// before its chunk and the total from block_total, ranks the candidates of
+// its chunk tile by tile (kThreads x 32 flags), writes those below cap, and
+// takes its share of the unused body rows; block 0 writes the footer.
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    compact_scatter_kernel(const uint8_t* __restrict__ base, int64_t lo,
+                           int64_t hi, int64_t chunk,
+                           const int16_t* __restrict__ counts, int K, int cap,
+                           const int32_t* __restrict__ block_total,
+                           int32_t* __restrict__ out) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int warp_sum[2][kWarps];
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int wid = t >> 5;
   const int width = K + 1;
-  int base = 0;  // candidates before this chunk; uniform across the block
-  for (int64_t c0 = 0; c0 < L;
-       c0 += static_cast<int64_t>(kCompactThreads) * kCompactItems) {
-    const int64_t i0 = c0 + static_cast<int64_t>(t) * kCompactItems;
-    bool f[kCompactItems];
-    int n = 0;
-#pragma unroll
-    for (int j = 0; j < kCompactItems; ++j) {
-      f[j] = (i0 + j < L) && flags[i0 + j] != 0;
-      n += f[j] ? 1 : 0;
+  int before = 0;   // candidates in the chunks before this one
+  int total = 0;    // candidates in all chunks
+  if (block_total != nullptr) {
+    int mine_before = 0, mine_all = 0;
+    for (int i = t; i < static_cast<int>(gridDim.x); i += kThreads) {
+      const int x = block_total[i];
+      mine_all += x;
+      if (i < static_cast<int>(blockIdx.x)) mine_before += x;
     }
+    mine_before = __reduce_add_sync(kFullMask, mine_before);
+    mine_all = __reduce_add_sync(kFullMask, mine_all);
+    if (lane == 0) {
+      warp_sum[0][wid] = mine_before;
+      warp_sum[1][wid] = mine_all;
+    }
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) {
+      before += warp_sum[0][w];
+      total += warp_sum[1][w];
+    }
+    __syncthreads();  // warp_sum is rewritten by the tiles
+  }
+  // Every bound of this loop is the same for all threads of the block. With
+  // the total known, a chunk whose candidates all rank at or above cap is
+  // not read again.
+  int rank0 = before;  // candidates before the tile
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * chunk;
+  int parity = 0;
+  for (int64_t v0 = c0; v0 < c0 + chunk && v0 < hi;
+       v0 += kThreads * kFlagsPerThread) {
+    if (block_total != nullptr && rank0 >= cap) break;
+    const int64_t v = v0 + t * kFlagsPerThread;
+    uint32_t m = flag_mask32(base, v, lo, hi);
+    const int n = __popc(m);
     int x = n;  // inclusive scan within the warp
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
       const int y = __shfl_up_sync(kFullMask, x, off);
       if (lane >= off) x += y;
     }
-    if (lane == 31) warp_totals[wid] = x;
+    if (lane == 31) warp_sum[parity][wid] = x;
+    // One barrier a tile: the next tile writes the other half of warp_sum,
+    // and no thread reaches the tile after that before all have read this.
     __syncthreads();
-    if (wid == 0) {
-      int s = warp_totals[lane];
+    int warps_before = 0, tile_total = 0;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(kFullMask, s, off);
-        if (lane >= off) s += y;
-      }
-      warp_totals[lane] = s;
+    for (int w = 0; w < kWarps; ++w) {
+      const int s = warp_sum[parity][w];
+      if (w < wid) warps_before += s;
+      tile_total += s;
     }
-    __syncthreads();
-    int rank = base + (wid ? warp_totals[wid - 1] : 0) + x - n;
-    const int chunk_total = warp_totals[kCompactThreads / 32 - 1];
-#pragma unroll
-    for (int j = 0; j < kCompactItems; ++j) {
-      if (f[j]) {
-        if (rank < cap) {
-          const int64_t row = i0 + j;
-          int32_t* dst = out + static_cast<int64_t>(rank) * width;
-          dst[0] = static_cast<int32_t>(row);
-          for (int k = 0; k < K; ++k) dst[1 + k] = counts[row * K + k];
-        }
-        ++rank;
-      }
+    int rank = rank0 + warps_before + x - n;
+    while (m != 0 && rank < cap) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1;
+      const int64_t row = v + j - lo;
+      int32_t* dst = out + static_cast<int64_t>(rank) * width;
+      dst[0] = static_cast<int32_t>(row);
+      for (int k = 0; k < K; ++k) dst[1 + k] = counts[row * K + k];
+      ++rank;
     }
-    base += chunk_total;
-    __syncthreads();  // warp_totals is rewritten by the next chunk
+    rank0 += tile_total;
+    parity ^= 1;
   }
-  const int used = base < cap ? base : cap;
-  const int64_t body_end = static_cast<int64_t>(cap) * width;
-  for (int64_t e = static_cast<int64_t>(used) * width + t; e < body_end;
-       e += kCompactThreads)
-    out[e] = (e % width == 0) ? -1 : 0;
-  for (int e = t; e < width; e += kCompactThreads)
-    out[body_end + e] = e == 0 ? base : 0;
+  if (block_total == nullptr) total = rank0;
+  // The unused body rows [used, cap): -1 in column 0, zeros beside it. All
+  // blocks share them, in groups of four elements (out is aligned to 16
+  // bytes): group g holds elements 4g .. 4g + 3.
+  const int used = total < cap ? total : cap;
+  const int64_t e_lo = static_cast<int64_t>(used) * width;
+  const int64_t e_hi = static_cast<int64_t>(cap) * width;
+  const int64_t g_hi = (e_hi + 3) >> 2;
+  for (int64_t g =
+           (e_lo >> 2) + static_cast<int64_t>(blockIdx.x) * kThreads + t;
+       g < g_hi; g += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t e = 4 * g;
+    // Element e lies in column e mod width; 32-bit division where it will
+    // do, since this loop is all a small tile's one block has to do.
+    const unsigned r = e_hi < (int64_t{1} << 31)
+                           ? static_cast<unsigned>(e) %
+                                 static_cast<unsigned>(width)
+                           : static_cast<unsigned>(e % width);
+    int4 q;
+    q.x = r == 0 ? -1 : 0;
+    q.y = (r + 1) % width == 0 ? -1 : 0;
+    q.z = (r + 2) % width == 0 ? -1 : 0;
+    q.w = (r + 3) % width == 0 ? -1 : 0;
+    if (e >= e_lo && e + 4 <= e_hi) {
+      *reinterpret_cast<int4*>(out + e) = q;
+    } else {
+      if (e >= e_lo && e < e_hi) out[e] = q.x;
+      if (e + 1 >= e_lo && e + 1 < e_hi) out[e + 1] = q.y;
+      if (e + 2 >= e_lo && e + 2 < e_hi) out[e + 2] = q.z;
+      if (e + 3 >= e_lo && e + 3 < e_hi) out[e + 3] = q.w;
+    }
+  }
+  if (blockIdx.x == 0)
+    for (int e = t; e < width; e += kThreads) out[e_hi + e] = e == 0 ? total : 0;
 }
 
 }  // namespace
@@ -463,14 +601,47 @@ int guac_csr_count_screen(const void* blob, int64_t n_blob,
   }
 }
 
-// out [cap+1, K+1] int32 is written in full.
+// out [cap+1, K+1] int32, aligned to 16 bytes, is written in full. flags [L]
+// uint8 may start at any
+// byte; no byte outside [flags, flags + L) is read. scratch: room for 1024
+// int32 (the block totals of the two-pass route), written and read by this
+// call's launches only, so calls on several streams need one each.
 int guac_csr_compact(const void* flags, const void* counts, int64_t L, int K,
-                     int cap, void* out, void* stream) {
-  if (K < 1 || K > 15 || cap < 0) return static_cast<int>(cudaErrorInvalidValue);
-  csr_compact_kernel<<<1, kCompactThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(flags), static_cast<const int16_t*>(counts),
-      L, K, cap, static_cast<int32_t*>(out));
+                     int cap, void* out, void* stream, void* scratch) {
+  if (K < 1 || K > 15 || cap < 0 || L < 0 || L >= (int64_t{1} << 31) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const int16_t*>(counts);
+  auto* o = static_cast<int32_t*>(out);
+  // Positions count from the flags' address aligned down to 16 bytes, where
+  // the flags are [lo, hi): every 16-byte load is aligned whatever the first
+  // byte is, and chunks begin at multiples of a tile.
+  const int64_t lo =
+      static_cast<int64_t>(reinterpret_cast<uintptr_t>(flags) & 15u);
+  const int64_t hi = lo + L;
+  const uint8_t* base = static_cast<const uint8_t*>(flags) - lo;
+  if (L <= kOneBlockFlags) {
+    // A grid of one block also serves L == 0: the fill and the footer.
+    compact_scatter_kernel<kOneBlockThreads><<<1, kOneBlockThreads, 0, s>>>(
+        base, lo, hi, hi > 0 ? hi : 1, c, K, cap, nullptr, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // One tile (256 threads x 32 flags) a block while that gives at most 1024
+  // blocks; beyond, whole tiles more, so the count of blocks stays there.
+  constexpr int64_t kTile = int64_t{kCompactThreads} * kFlagsPerThread;
+  const int64_t tiles = (hi + kTile - 1) / kTile;
+  const int64_t chunk =
+      (tiles + kCompactMaxBlocks - 1) / kCompactMaxBlocks * kTile;
+  const unsigned blocks = static_cast<unsigned>((hi + chunk - 1) / chunk);
+  auto* totals = static_cast<int32_t*>(scratch);
+  compact_count_kernel<<<blocks, kCompactThreads, 0, s>>>(base, lo, hi, chunk,
+                                                          totals);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  compact_scatter_kernel<kCompactThreads><<<blocks, kCompactThreads, 0, s>>>(
+      base, lo, hi, chunk, c, K, cap, totals, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,22 +52,61 @@
 // allele would cancel most of that total's digits.
 //
 // D spans the packer's depth buckets 8..16384 and beyond, so the mapping of
-// threads to rows follows D as in ll_screen.cu: a team of 1..32 lanes (D/8,
-// a power of two) owns a row, each lane reads 4 elements per plane and step
-// (8 B of int16, 4 B of flags) and keeps 5 sums per allele in registers,
-// reduced with __shfl_xor_sync inside the team; rows of D >= 2048 take a
-// whole block, whose 8 warp sums meet in shared memory and are added in a
-// fixed order. The float sums of a row then lie in shared memory, where the
-// team's lanes index them to write the P pair likelihoods side by side (P is
-// a run-time loop: 136 pairs at K = 16). Two register budgets, 8 and 16
-// alleles; K > 16 walks the row once per 16 alleles. The success
-// probabilities of quals 0..127 and MAPQs 0..255 are tabulated per block by
-// the same function that serves values outside the tables.
+// threads to rows follows D as in ll_screen.cu.
+//  - Below D = 256 a row takes ONE thread: no reduction across lanes, and
+//    a whole 16-byte load belongs to one row. Deeper rows take a team of
+//    2..32 lanes (every lane at least 128 elements of the row; a warp a row
+//    from D = 4096), the steps of a row dealt to the lanes in turn, so that
+//    one load of the team covers consecutive bytes. Warps do not wait for
+//    one another: a warp takes rounds of 32 / team consecutive rows.
+//  - A tile of few rows is one thread's chain of steps, with most of the
+//    card idle. Its rows take larger teams, down to one vector step a lane,
+//    as long as the tile then gives an SM no more than 16 warps (on a device
+//    of 132 SMs: up to 33,792 rows two lanes each, up to 2,112 a warp each).
+//  - A step is 8 elements: one 16-byte load of each int16 plane, one 8-byte
+//    load of each byte plane, all planes at once. A lane starts the loads of
+//    4 steps (64 bytes of allele ids, 128 to 256 bytes of its row) before it
+//    adds the first element. A tile whose D is no multiple of 8, or whose
+//    planes do not start at a multiple of 16 bytes (a view into a larger
+//    tensor), is read element by element.
+//  - Sums are indexed, not compared. A thread's sums lie in its own column
+//    of two [K][threads] arrays in shared memory (consecutive threads in
+//    consecutive banks, so no conflicts): {count, forward count} of an
+//    allele as one 8-byte word and, with likelihoods, its three float sums
+//    as one 16-byte word. An element costs one read-modify-write of each,
+//    whatever K is. K is a run-time value up to 256: many alleles only mean
+//    fewer threads a block (a block stays under 48 KB of shared memory
+//    while it has more than 32 threads), and a row is walked once. A team's
+//    columns lie side by side; its lanes add them up allele by allele, each
+//    lane its own alleles, into the first lane's column.
+//  - No logf in the element loop of the form without alignment: the three
+//    terms of quals 0..127 are tabulated per block by the functions that
+//    serve the values outside the table, so a tabulated term has the bits of
+//    a computed one. With alignment pc_q * pc_m keeps its three logs (the
+//    success probabilities of quals 0..127 and MAPQs 0..255 are tabulated).
+//  - The row's first lane applies the rule and writes the row's K counts and
+//    forward counts as 16-byte stores (K a multiple of 4). The P pairs are
+//    written in output order, with running sums of the N_k before i, between
+//    i and j, and (kept in the spare float of allele j) after j: a pair
+//    costs a few additions, not K, and nothing is subtracted. A team's lanes
+//    deal out the first alleles i among them; each adds up the N_k before
+//    its i in the order one lane would.
+//  - The likelihoods are the largest output, and a thread that stores its
+//    own row's P floats writes 16 bytes here and 16 bytes 4P bytes on: the
+//    card takes such stores at a fraction of its rate. So the lanes put
+//    their rows' likelihoods into a staging buffer of the warp (rows an odd
+//    number of floats apart, so they start in different banks), and the warp
+//    writes its rows' [rows, P] range, which is contiguous in the output,
+//    with 16-byte stores, neighbouring lanes neighbouring addresses. (From
+//    about K = 60 a warp's likelihoods do not fit beside its sums and go
+//    straight to the output.)
+//  - Blocks are many and short (128 threads in the counting form; one round
+//    of rows a warp until the grid has 64 warps for every SM of the device),
+//    so the card's block scheduler evens out the work.
 //
-// Bound: memory. With likelihoods each slot is 6 B (8 B with
-// include_alignment) read once, and each row writes 8K + 5 + 4P bytes; the
-// arithmetic (three logf and five adds an element) is an order of magnitude
-// below that at the f32 rate.
+// Bound: memory. Every slot's valid byte is read; a valid element's other
+// planes are 3 B without likelihoods, 5 B with them and 7 B with
+// include_alignment; a row writes 8K + 5 bytes, and 4P more with likelihoods.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -78,12 +117,18 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kDeepRow = 2048;        // rows this wide take a whole block
-constexpr int kMaxBlocks = 132 * 16;  // 16 blocks per SM of an H100 SXM
+constexpr int kMaxThreads = 256;
+constexpr int kCountThreads = 128;   // the counting form's block at the most
+constexpr int kLaneElements = 128;   // a lane of a team takes at least these
+constexpr int kSmallTileWarps = 16;  // a tile that gives an SM fewer warps is small
+constexpr int kGroup = 8;            // elements of one vector step
+constexpr int kBatch = 4;            // steps a lane loads before it adds
+constexpr int kBlockBudget = 48 * 1024;  // shared memory of a block of > 32 threads
+constexpr int kMaxSharedBytes = 227 * 1024;
+constexpr int kWarpsPerSm = 64;          // the grid's warps for every SM, at most
 constexpr int kQualTable = 128;
 constexpr int kMapqTable = 256;
+constexpr int kTableFloats = kQualTable + kMapqTable;  // either form's tables
 constexpr float kLog2 = 0.6931471805599453f;
 
 // 1 - 10^(-q/10), as the TPU kernel writes it (q * -0.1). Non-inlined: the
@@ -96,17 +141,9 @@ struct Terms {
   float hom, mid, none;
 };
 
-__device__ __forceinline__ Terms element_terms(int q, int mq, bool alignment,
-                                               const float* tab_q,
-                                               const float* tab_m) {
-  float pc = (q >= 0 && q < kQualTable) ? tab_q[q]
-                                        : phred_success(static_cast<float>(q));
-  if (alignment) {
-    const float pm = (mq >= 0 && mq < kMapqTable)
-                         ? tab_m[mq]
-                         : phred_success(static_cast<float>(mq));
-    pc = __fmul_rn(pc, pm);
-  }
+// The three values log(p_i + p_j) takes for an element of success
+// probability pc. Non-inlined, as phred_success is and for the same reason.
+__device__ __noinline__ Terms log_terms(float pc) {
   const float om = __fsub_rn(1.0f, pc);
   Terms t;
   t.hom = logf(__fadd_rn(pc, pc));
@@ -115,329 +152,510 @@ __device__ __forceinline__ Terms element_terms(int q, int mq, bool alignment,
   return t;
 }
 
-template <int KMAX>
-struct Sums {
-  int cnt[KMAX];
-  int fwd[KMAX];
-  float a[KMAX];  // log(2 pc) over the allele's elements
-  float m[KMAX];  // log(pc + (1 - pc))
-  float n[KMAX];  // log(2 (1 - pc))
-  int depth;
-  float n_none;   // log(2 (1 - pc)) over valid elements of no allele
+// A thread's sums are its column of two [K][threads] arrays in shared
+// memory: {count, forward count} of allele k as one 8-byte word and, in the
+// likelihood forms, {A_k, M_k, N_k, a spare} as one 16-byte word. An element
+// is one read-modify-write of each, whatever K is.
+struct Column {
+  int2* ints;      // this thread's column, allele 0
+  float4* floats;  // likewise
+  int stride;      // threads of the block
+  int K;
 };
 
-template <int KMAX, bool kLL>
-__device__ __forceinline__ void add_element(Sums<KMAX>& s, int aid, int q,
-                                            int mq, int fwd, int K, int base,
-                                            bool alignment, const float* tab_q,
-                                            const float* tab_m) {
-  if (base == 0) s.depth += 1;
-  const bool no_allele = aid < 0 || aid >= K;
-  const int local = aid - base;
-  if (!kLL) {
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (local == k && !no_allele) {
-        s.cnt[k] += 1;
-        s.fwd[k] += fwd;
-      }
+template <bool kLL, bool kAlign>
+__device__ __forceinline__ void add_element(const Column& c, int aid, int q,
+                                            int mq, int fwd, const float* tab,
+                                            int& depth, float& n_none) {
+  depth += 1;
+  const bool has_allele = static_cast<unsigned>(aid) < static_cast<unsigned>(c.K);
+  if (has_allele) {
+    int2 n = c.ints[aid * c.stride];
+    n.x += 1;
+    n.y += fwd;
+    c.ints[aid * c.stride] = n;
+  }
+  if constexpr (kLL) {
+    Terms t;
+    const bool q_tabulated = static_cast<unsigned>(q) < kQualTable;
+    if constexpr (kAlign) {
+      const float pc =
+          q_tabulated ? tab[q] : phred_success(static_cast<float>(q));
+      const float pm = static_cast<unsigned>(mq) < kMapqTable
+                           ? tab[kQualTable + mq]
+                           : phred_success(static_cast<float>(mq));
+      t = log_terms(__fmul_rn(pc, pm));
+    } else if (q_tabulated) {
+      t.hom = tab[q];
+      t.mid = tab[kQualTable + q];
+      t.none = tab[2 * kQualTable + q];
+    } else {
+      t = log_terms(phred_success(static_cast<float>(q)));
     }
-    return;
-  }
-  if (!no_allele && (local < 0 || local >= KMAX)) return;  // another pass
-  if (no_allele && base != 0) return;
-  const Terms t = element_terms(q, mq, alignment, tab_q, tab_m);
-  if (no_allele) {
-    s.n_none += t.none;
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < KMAX; ++k) {
-    if (local == k) {
-      s.cnt[k] += 1;
-      s.fwd[k] += fwd;
-      s.a[k] += t.hom;
-      s.m[k] += t.mid;
-      s.n[k] += t.none;
+    if (has_allele) {
+      float4 f = c.floats[aid * c.stride];
+      f.x += t.hom;
+      f.y += t.mid;
+      f.z += t.none;
+      c.floats[aid * c.stride] = f;
+    } else {
+      n_none += t.none;
     }
   }
 }
 
-// Shared memory per row: A[K], M[K], N[K], then N_none.
-__device__ __forceinline__ int row_floats(int K) { return 3 * K + 1; }
+// Eight elements of a row, one 16-byte load of every int16 plane and one
+// 8-byte load of both byte planes.
+struct Group {
+  uint4 a, q, m;
+  uint2 v, f;
+};
 
-template <int KMAX, bool kLL>
-__global__ void __launch_bounds__(kThreads)
+template <bool kLL, bool kAlign>
+__device__ __forceinline__ void load_group(
+    Group& g, const int16_t* __restrict__ allele_id,
+    const int16_t* __restrict__ qual, const int16_t* __restrict__ mapq,
+    const uint8_t* __restrict__ strand, const uint8_t* __restrict__ valid,
+    int64_t at) {
+  g.v = *reinterpret_cast<const uint2*>(valid + at);
+  g.f = *reinterpret_cast<const uint2*>(strand + at);
+  g.a = *reinterpret_cast<const uint4*>(allele_id + at);
+  if constexpr (kLL) g.q = *reinterpret_cast<const uint4*>(qual + at);
+  if constexpr (kLL && kAlign) g.m = *reinterpret_cast<const uint4*>(mapq + at);
+}
+
+template <bool kLL, bool kAlign>
+__device__ __forceinline__ void add_group(const Column& c, const Group& g,
+                                          const float* tab, int& depth,
+                                          float& n_none) {
+  if ((g.v.x | g.v.y) == 0) return;
+  const uint32_t aw[4] = {g.a.x, g.a.y, g.a.z, g.a.w};
+  const uint32_t qw[4] = {g.q.x, g.q.y, g.q.z, g.q.w};
+  const uint32_t mw[4] = {g.m.x, g.m.y, g.m.z, g.m.w};
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const unsigned sh8 = 8 * (i & 3);
+    if ((((i < 4 ? g.v.x : g.v.y) >> sh8) & 0xFFu) == 0) continue;
+    const unsigned sh16 = 16 * (i & 1);
+    const int fwd = (((i < 4 ? g.f.x : g.f.y) >> sh8) & 0xFFu) != 0 ? 1 : 0;
+    int q = 0, mq = 0;
+    if constexpr (kLL)
+      q = static_cast<int16_t>((qw[i >> 1] >> sh16) & 0xFFFFu);
+    if constexpr (kLL && kAlign)
+      mq = static_cast<int16_t>((mw[i >> 1] >> sh16) & 0xFFFFu);
+    add_element<kLL, kAlign>(
+        c, static_cast<int16_t>((aw[i >> 1] >> sh16) & 0xFFFFu), q, mq, fwd,
+        tab, depth, n_none);
+  }
+}
+
+// An allele with n elements passes the threshold: n * 100 // depth >
+// threshold, without the division; any element passes without a threshold.
+__device__ __forceinline__ bool passes(int n, int threshold, int64_t need) {
+  return n > 0 && (threshold < 0 || static_cast<int64_t>(n) * 100 >= need);
+}
+
+// Where element e of a warp's [rows][P] likelihoods lies in its staging
+// buffer, whose rows are `pitch` floats apart.
+__device__ __forceinline__ int staged_at(int e, int P, int pitch) {
+  const int r = e / P;
+  return r * pitch + (e - r * P);
+}
+
+// kOneThread: every row has one thread (the launcher's promise that
+// team_log2 is 0), so the team's code folds away at compile time.
+template <bool kLL, bool kAlign, bool kVec, bool kOneThread>
+__global__ void __launch_bounds__(kMaxThreads)
     stats_ll_kernel(const int16_t* __restrict__ allele_id,
                     const int16_t* __restrict__ qual,
                     const int16_t* __restrict__ mapq,
                     const uint8_t* __restrict__ strand,
                     const uint8_t* __restrict__ valid,
                     const uint8_t* __restrict__ is_variant, int64_t L, int D,
-                    int K, int team, bool block_row, bool vec4, bool alignment,
+                    int K, int team_log2_given, bool wide_out, bool staged,
                     int threshold, int32_t* __restrict__ counts,
                     int32_t* __restrict__ fwd_counts,
                     int32_t* __restrict__ depth_out,
                     uint8_t* __restrict__ cand_out, float* __restrict__ ll) {
-  __shared__ float tab_q[kQualTable];
-  __shared__ float tab_m[kMapqTable];
-  __shared__ float part_f[kWarps][3 * KMAX + 1];
-  __shared__ int part_i[kWarps][2 * KMAX + 1];
-  extern __shared__ float row_sums[];  // [rows_per_block][3K + 1]
+  extern __shared__ __align__(16) float shared[];
+  const int T = blockDim.x;
   const int t = threadIdx.x;
-  if (kLL) {
-    if (t < kQualTable) tab_q[t] = phred_success(static_cast<float>(t));
-    tab_m[t] = phred_success(static_cast<float>(t));  // kThreads == kMapqTable
+  const float* tab = shared;
+  if constexpr (kLL) {
+    // Quals 0..127 (and MAPQs 0..255) through the functions that serve the
+    // values outside the tables: a tabulated term has a computed one's bits.
+    if constexpr (kAlign) {
+      for (int i = t; i < kTableFloats; i += T)
+        shared[i] = phred_success(
+            static_cast<float>(i < kQualTable ? i : i - kQualTable));
+    } else {
+      for (int i = t; i < kQualTable; i += T) {
+        const Terms terms = log_terms(phred_success(static_cast<float>(i)));
+        shared[i] = terms.hom;
+        shared[kQualTable + i] = terms.mid;
+        shared[2 * kQualTable + i] = terms.none;
+      }
+    }
     __syncthreads();
   }
-  const int rows_per_block = block_row ? 1 : kThreads / team;
-  const int member = block_row ? t : t % team;
-  const int stride = block_row ? kThreads : team;
-  const int local_row = block_row ? 0 : t / team;
-  float* mine = row_sums + local_row * row_floats(K);
+  // The block's shared memory: the tables, the float sums [K][T] x 16 B, the
+  // integer sums [K][T] x 8 B, a staging buffer of likelihoods per warp.
+  float4* float_sums = reinterpret_cast<float4*>(shared + (kLL ? kTableFloats : 0));
+  int2* int_sums = reinterpret_cast<int2*>(float_sums + (kLL ? K * T : 0));
+  Column c;
+  c.ints = int_sums + t;
+  c.floats = float_sums + t;
+  c.stride = T;
+  c.K = K;
+  const int lane = t & 31;
+  const int team_log2 = kOneThread ? 0 : team_log2_given;
+  const int team = 1 << team_log2;       // lanes that share a row
+  const int member = lane & (team - 1);  // this lane's place in its team
+  const int rows_per_warp = 32 >> team_log2;
+  const int warps = T >> 5;
   const int P = K * (K + 1) / 2;
-  // Every thread of a block runs the same number of iterations, so the
-  // shuffles and barriers below are reached by all.
-  for (int64_t base_row = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-       base_row < L;
-       base_row += static_cast<int64_t>(gridDim.x) * rows_per_block) {
-    const int64_t row = block_row ? base_row : base_row + local_row;
+  const int pitch = P | 1;  // odd: the lanes' staged rows start in 32 banks
+  float* stage = reinterpret_cast<float*>(int_sums + K * T) +
+                 (t >> 5) * rows_per_warp * pitch;
+  const int64_t n_rounds = (L + rows_per_warp - 1) / rows_per_warp;
+  const int local_row = lane >> team_log2;
+
+  auto clear_sums = [&]() {
+    for (int k = 0; k < K; ++k) {
+      c.ints[k * T] = make_int2(0, 0);
+      if constexpr (kLL) c.floats[k * T] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+
+  // What follows a round's last element: the team's sums meet, the row's
+  // first lane applies the rule and writes the row, the warp writes its
+  // rows' likelihoods. All lanes of the warp come here together.
+  auto finish_round = [&](int64_t round, int depth, float n_none) {
+    const int64_t row0 = round * rows_per_warp;
+    const int64_t row = row0 + local_row;
     const bool active = row < L;
-    int depth = 0;
-    int pass_variant = 0, pass_ref = 0;  // the rule's tallies, on member 0
-    for (int base = 0; base < K; base += KMAX) {
-      Sums<KMAX> s;
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        s.cnt[k] = 0;
-        s.fwd[k] = 0;
-        s.a[k] = 0.0f;
-        s.m[k] = 0.0f;
-        s.n[k] = 0.0f;
+    int pass_variant = 0, pass_ref = 0;  // the rule's tallies
+    if (team > 1) {
+      // The team's columns lie side by side. Lane m adds up the sums of
+      // alleles m, m + team, ... over them, each starting at its own column
+      // so that the lanes read different banks, and leaves the total in the
+      // first lane's column. No lane touches a sum that another adds up.
+      __syncwarp();
+      for (int off = team >> 1; off > 0; off >>= 1) {
+        depth += __shfl_xor_sync(kFullMask, depth, off);
+        if constexpr (kLL) n_none += __shfl_xor_sync(kFullMask, n_none, off);
       }
-      s.depth = 0;
-      s.n_none = 0.0f;
-      if (active) {
-        const int64_t o = row * D;
-        if (vec4) {
-          for (int e = member * 4; e < D; e += stride * 4) {
-            const uint32_t v =
-                *reinterpret_cast<const uint32_t*>(valid + o + e);
-            if (v == 0) continue;
-            const uint32_t f =
-                *reinterpret_cast<const uint32_t*>(strand + o + e);
-            const uint2 a = *reinterpret_cast<const uint2*>(allele_id + o + e);
-            uint2 q = make_uint2(0u, 0u), m = make_uint2(0u, 0u);
-            if (kLL) {
-              q = *reinterpret_cast<const uint2*>(qual + o + e);
-              if (alignment) m = *reinterpret_cast<const uint2*>(mapq + o + e);
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              if (((v >> (8 * i)) & 0xFFu) == 0) continue;
-              const unsigned sh = 16 * (i & 1);
-              const unsigned aw = (i < 2) ? a.x : a.y;
-              const unsigned qw = (i < 2) ? q.x : q.y;
-              const unsigned mw = (i < 2) ? m.x : m.y;
-              add_element<KMAX, kLL>(
-                  s, static_cast<int16_t>((aw >> sh) & 0xFFFFu),
-                  static_cast<int16_t>((qw >> sh) & 0xFFFFu),
-                  static_cast<int16_t>((mw >> sh) & 0xFFFFu),
-                  ((f >> (8 * i)) & 0xFFu) != 0 ? 1 : 0, K, base, alignment,
-                  tab_q, tab_m);
-            }
+      const int64_t need =
+          static_cast<int64_t>(depth) * (static_cast<int64_t>(threshold) + 1);
+      for (int k = member; k < K; k += team) {
+        int2* ni = c.ints - member + k * T;
+        int2 n = make_int2(0, 0);
+        for (int i = 0; i < team; ++i) {
+          const int2 x = ni[(member + i) & (team - 1)];
+          n.x += x.x;
+          n.y += x.y;
+        }
+        ni[0] = n;
+        // The lane that has an allele's total applies the rule to it.
+        if (active && passes(n.x, threshold, need)) {
+          if (is_variant[row * K + k] != 0) {
+            pass_variant += 1;
+          } else {
+            pass_ref += 1;
           }
-        } else {
-          for (int e = member; e < D; e += stride) {
-            if (valid[o + e] == 0) continue;
-            add_element<KMAX, kLL>(
-                s, allele_id[o + e], kLL ? qual[o + e] : 0,
-                (kLL && alignment) ? mapq[o + e] : 0,
-                strand[o + e] != 0 ? 1 : 0, K, base, alignment, tab_q, tab_m);
+        }
+        if constexpr (kLL) {
+          float4* fi = c.floats - member + k * T;
+          float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int i = 0; i < team; ++i) {
+            const float4 x = fi[(member + i) & (team - 1)];
+            f.x += x.x;
+            f.y += x.y;
+            f.z += x.z;
           }
+          fi[0] = f;
         }
       }
-      const int width = block_row ? 32 : team;
-      for (int off = width >> 1; off > 0; off >>= 1) {
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          s.cnt[k] += __shfl_xor_sync(kFullMask, s.cnt[k], off);
-          s.fwd[k] += __shfl_xor_sync(kFullMask, s.fwd[k], off);
-          if (kLL) {
-            s.a[k] += __shfl_xor_sync(kFullMask, s.a[k], off);
-            s.m[k] += __shfl_xor_sync(kFullMask, s.m[k], off);
-            s.n[k] += __shfl_xor_sync(kFullMask, s.n[k], off);
-          }
-        }
-        s.depth += __shfl_xor_sync(kFullMask, s.depth, off);
-        if (kLL) s.n_none += __shfl_xor_sync(kFullMask, s.n_none, off);
+      for (int off = team >> 1; off > 0; off >>= 1) {
+        pass_variant += __shfl_xor_sync(kFullMask, pass_variant, off);
+        pass_ref += __shfl_xor_sync(kFullMask, pass_ref, off);
       }
-      if (block_row) {
-        const int wid = t >> 5;
-        if ((t & 31) == 0) {
-#pragma unroll
-          for (int k = 0; k < KMAX; ++k) {
-            part_i[wid][k] = s.cnt[k];
-            part_i[wid][KMAX + k] = s.fwd[k];
-            part_f[wid][k] = s.a[k];
-            part_f[wid][KMAX + k] = s.m[k];
-            part_f[wid][2 * KMAX + k] = s.n[k];
-          }
-          part_i[wid][2 * KMAX] = s.depth;
-          part_f[wid][3 * KMAX] = s.n_none;
-        }
-        __syncthreads();
-        if (t == 0) {
-          for (int w = 1; w < kWarps; ++w) {
-#pragma unroll
-            for (int k = 0; k < KMAX; ++k) {
-              s.cnt[k] += part_i[w][k];
-              s.fwd[k] += part_i[w][KMAX + k];
-              s.a[k] += part_f[w][k];
-              s.m[k] += part_f[w][KMAX + k];
-              s.n[k] += part_f[w][2 * KMAX + k];
-            }
-            s.depth += part_i[w][2 * KMAX];
-            s.n_none += part_f[w][3 * KMAX];
-          }
-        }
-        __syncthreads();  // part_* is rewritten by the next pass
-      }
-      if (base == 0) depth = s.depth;  // member 0 holds the row's total
-      if (active && member == 0) {
-        if (base == 0) {
-          depth_out[row] = depth;
-          if (kLL) mine[3 * K] = s.n_none;
-        }
-        const int64_t need =
-            static_cast<int64_t>(depth) * (static_cast<int64_t>(threshold) + 1);
-#pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
-          const int g = base + k;
-          if (g < K) {
-            counts[row * K + g] = s.cnt[k];
-            fwd_counts[row * K + g] = s.fwd[k];
-            const bool variant = is_variant[row * K + g] != 0;
-            const bool passing =
-                s.cnt[k] > 0 &&
-                (threshold < 0 ||
-                 static_cast<int64_t>(s.cnt[k]) * 100 >= need);
-            if (passing) {
-              if (variant) {
-                pass_variant += 1;
-              } else {
-                pass_ref += 1;
-              }
-            }
-            if (kLL) {
-              mine[g] = s.a[k];
-              mine[K + g] = s.m[k];
-              mine[2 * K + g] = s.n[k];
-            }
-          }
-        }
-      }
+      __syncwarp();
     }
     if (active && member == 0) {
-      const bool cand = threshold < 0 ? pass_variant > 0
-                                      : (pass_variant > 0 || pass_ref >= 2);
-      cand_out[row] = cand ? 1 : 0;
-    }
-    if (kLL) {
-      // The row's sums are in shared memory: every lane of its team writes
-      // some of the P pairs, side by side.
-      if (block_row) {
-        __syncthreads();
-      } else {
-        __syncwarp();
-      }
-      // In block_row mode only thread 0 knows the depth.
-      if (block_row) {
-        if (t == 0) part_i[0][0] = depth;
-        __syncthreads();
-        depth = part_i[0][0];
-      }
-      if (active) {
-        const float tail =
-            __fmul_rn(static_cast<float>(depth), -kLog2);
-        int i = 0, j = 0;
-        // Walk to pair number `member`, then on in steps of `stride`.
-        int ahead = member;
-        int p = member;
-        while (p < P) {
-          while (ahead > 0) {
-            const int left = K - j;  // pairs left in row i, this one included
-            if (ahead < left) {
-              j += ahead;
-              ahead = 0;
+      // The row's sums are this lane's column.
+      depth_out[row] = depth;
+      if (team == 1) {
+        const int64_t need = static_cast<int64_t>(depth) *
+                             (static_cast<int64_t>(threshold) + 1);
+        for (int k = 0; k < K; ++k) {
+          if (passes(c.ints[k * T].x, threshold, need)) {
+            if (is_variant[row * K + k] != 0) {
+              pass_variant += 1;
             } else {
-              ahead -= left;
-              i += 1;
-              j = i;
+              pass_ref += 1;
             }
           }
-          float others = mine[3 * K];
-          for (int k = 0; k < K; ++k) {
-            if (k != i && k != j) others += mine[2 * K + k];
-          }
-          const float own = (i == j) ? mine[i] : mine[K + i] + mine[K + j];
-          ll[row * P + p] = own + others + tail;
-          p += stride;
-          ahead = stride;
         }
       }
-      // `mine` is rewritten by the next row.
-      if (block_row) {
-        __syncthreads();
+      cand_out[row] = (threshold < 0 ? pass_variant > 0
+                                     : (pass_variant > 0 || pass_ref >= 2))
+                          ? 1
+                          : 0;
+      // A row's K counts are contiguous: 16-byte stores where K allows.
+      int32_t* crow = counts + row * K;
+      int32_t* frow = fwd_counts + row * K;
+      if (wide_out) {
+        for (int k = 0; k < K; k += 4) {
+          const int2 n0 = c.ints[k * T], n1 = c.ints[(k + 1) * T];
+          const int2 n2 = c.ints[(k + 2) * T], n3 = c.ints[(k + 3) * T];
+          *reinterpret_cast<int4*>(crow + k) = make_int4(n0.x, n1.x, n2.x, n3.x);
+          *reinterpret_cast<int4*>(frow + k) = make_int4(n0.y, n1.y, n2.y, n3.y);
+        }
       } else {
-        __syncwarp();
+        for (int k = 0; k < K; ++k) {
+          const int2 n = c.ints[k * T];
+          crow[k] = n.x;
+          frow[k] = n.y;
+        }
+      }
+      if constexpr (kLL) {
+        // The spare float of allele j takes N_{j+1} + ... + N_{K-1}.
+        float run = 0.0f;
+        for (int j = K - 1; j >= 0; --j) {
+          float4 f = c.floats[j * T];
+          f.w = run;
+          run += f.z;
+          c.floats[j * T] = f;
+        }
       }
     }
+    if constexpr (kLL) {
+      if (team > 1) __syncwarp();  // the row's lanes read its first lane's sums
+      if (active) {
+        // The row's lanes deal out the first alleles i of the pairs (i, j);
+        // a lane adds up the N_k before its i in the order one lane would.
+        const float4* sums = c.floats - member;
+        const float tail = __fmul_rn(static_cast<float>(depth), -kLog2);
+        // Into the warp's staging buffer, or, where many alleles leave no
+        // room for one, straight to the output.
+        float* dst = staged ? stage + local_row * pitch : ll + row * P;
+        float before = n_none;  // N_none + N_0 + ... + N_{i-1}
+        int k = 0;
+        for (int i = member; i < K; i += team) {
+          for (; k < i; ++k) before += sums[k * T].z;
+          int p = i * K - i * (i - 1) / 2;  // where the pairs (i, .) start
+          const float4 fi = sums[i * T];
+          float between = 0.0f;  // N_{i+1} + ... + N_{j-1}
+          float4 fj = fi;
+          for (int j = i; j < K; ++j, ++p) {
+            // The next allele's sums are asked for before this pair is
+            // stored, so the loop does not wait for shared memory.
+            const float4 next = j + 1 < K ? sums[(j + 1) * T] : fj;
+            // The N_k of the other alleles are added, never subtracted from
+            // their total: a deep reference allele would cancel its digits.
+            const float others = (before + between) + fj.w;
+            const float own = (i == j) ? fi.x : fi.y + fj.y;
+            dst[p] = own + others + tail;
+            if (j > i) between += fj.z;
+            fj = next;
+          }
+          before += fi.z;
+          k = i + 1;
+        }
+      }
+      // The pairs are written, and the first lane's column is read, before
+      // the warp copies them out and the lanes clear their columns.
+      __syncwarp();
+      if (staged) {
+        // The likelihoods of the warp's rows are one contiguous range of
+        // the output: 16-byte stores, neighbouring lanes neighbouring
+        // addresses, single floats up to the first aligned address and
+        // after the last.
+        const int64_t rows_left = L - row0;
+        const int n = static_cast<int>(rows_left < rows_per_warp
+                                           ? rows_left
+                                           : rows_per_warp) * P;
+        float* out = ll + row0 * P;
+        int head = static_cast<int>(
+            (4 - ((reinterpret_cast<uintptr_t>(out) >> 2) & 3u)) & 3u);
+        if (head > n) head = n;
+        if (lane < head) out[lane] = stage[staged_at(lane, P, pitch)];
+        const int n4 = (n - head) >> 2;
+        for (int q = lane; q < n4; q += 32) {
+          const int e = head + 4 * q;
+          int r = e / P;
+          int pp = e - r * P;
+          float v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            v[i] = stage[r * pitch + pp];
+            if (++pp == P) {
+              pp = 0;
+              ++r;
+            }
+          }
+          *reinterpret_cast<float4*>(out + e) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+        for (int e = head + 4 * n4 + lane; e < n; e += 32)
+          out[e] = stage[staged_at(e, P, pitch)];
+        __syncwarp();  // the buffer is rewritten in the next round
+      }
+    }
+    clear_sums();
+  };
+
+  // Warps do not wait for one another, and every bound below is the same
+  // for all lanes of a warp, so all reach the shuffles and __syncwarp()s.
+  const int64_t first_round = static_cast<int64_t>(blockIdx.x) * warps + (t >> 5);
+  const int64_t round_stride = static_cast<int64_t>(gridDim.x) * warps;
+  clear_sums();
+  int depth = 0;
+  float n_none = 0.0f;  // log 2(1 - pc) over valid elements of no allele
+  for (int64_t round = first_round; round < n_rounds; round += round_stride) {
+    const int64_t row = round * rows_per_warp + local_row;
+    if (row < L) {
+      const int64_t o = row * D;
+      if constexpr (kVec) {
+        const int n_groups = D / kGroup;
+        for (int g0 = member; g0 < n_groups; g0 += team * kBatch) {
+          Group g[kBatch];
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b) {
+            g[b].v = make_uint2(0u, 0u);
+            if (g0 + b * team < n_groups)
+              load_group<kLL, kAlign>(g[b], allele_id, qual, mapq, strand,
+                                      valid, o + (g0 + b * team) * kGroup);
+          }
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b)
+            add_group<kLL, kAlign>(c, g[b], tab, depth, n_none);
+        }
+      } else {
+        for (int e = member; e < D; e += team) {
+          if (valid[o + e] == 0) continue;
+          add_element<kLL, kAlign>(
+              c, allele_id[o + e], kLL ? qual[o + e] : 0,
+              (kLL && kAlign) ? mapq[o + e] : 0, strand[o + e] != 0 ? 1 : 0,
+              tab, depth, n_none);
+        }
+      }
+    }
+    finish_round(round, depth, n_none);
+    depth = 0;
+    n_none = 0.0f;
   }
 }
 
-template <int KMAX, bool kLL>
+bool aligned(const void* p, uintptr_t a) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
+}
+
+// The device's count of SMs (asked once per device).
+cudaError_t sm_count(int* n) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    rc = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                                dev);
+    if (rc != cudaSuccess) return rc;
+  }
+  *n = cached[dev];
+  return *n > 0 ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
+template <bool kLL, bool kAlign, bool kVec>
 cudaError_t launch(const void* allele_id, const void* qual, const void* mapq,
                    const void* strand, const void* valid,
                    const void* is_variant, int64_t L, int D, int K,
-                   bool alignment, int threshold, void* counts,
-                   void* fwd_counts, void* depth, void* cand, void* ll,
-                   cudaStream_t stream) {
-  const bool block_row = D >= kDeepRow;
-  // D/8 lanes, 1..32; more than 16 alleles keep a row's sums of 3K + 1
-  // floats in shared memory, so fewer rows share a block.
-  int team = 1;
-  while (team < 32 && team * 16 <= D) team *= 2;
-  if (K > 16) team = 32;
-  constexpr size_t kRowSumsLimit = 40 * 1024;
-  auto row_sums_bytes = [K](int lanes) {
-    return static_cast<size_t>(kThreads / lanes) * (3 * K + 1) * sizeof(float);
+                   int threshold, void* counts, void* fwd_counts, void* depth,
+                   void* cand, void* ll, cudaStream_t stream) {
+  // The largest team of 1..32 lanes that leaves every lane kLaneElements
+  // of its row: one thread a row below 2 * kLaneElements.
+  int team_log2 = 0;
+  while (team_log2 < 5 && (kLaneElements << (team_log2 + 1)) <= D) ++team_log2;
+  // A tile of few rows leaves most of the card idle, and its time is one
+  // thread's chain of steps: its rows take as many lanes as leave each a
+  // vector step, while that gives an SM no more than kSmallTileWarps warps.
+  int sms = 0;
+  const cudaError_t asked = sm_count(&sms);
+  if (asked != cudaSuccess) return asked;
+  const int64_t small_threads =
+      static_cast<int64_t>(sms) * kSmallTileWarps * 32;
+  while (team_log2 < 5 && (kGroup << (team_log2 + 1)) <= D &&
+         (L << (team_log2 + 1)) <= small_threads)
+    ++team_log2;
+  const int rows_per_warp = 32 >> team_log2;
+  // What a block holds: the tables, a column of 8 B (24 B with likelihoods)
+  // an allele for every thread, and a warp's staged likelihoods. Many
+  // alleles take fewer threads a block; where even one warp's likelihoods
+  // find no room they go straight to the output.
+  const int column_bytes = (kLL ? 24 : 8) * K;
+  const int stage_bytes = kLL ? rows_per_warp * ((K * (K + 1) / 2) | 1) * 4 : 0;
+  auto block_bytes = [&](int threads, bool staged) {
+    return (kLL ? kTableFloats * 4 : 0) + threads * column_bytes +
+           (staged ? threads / 32 * stage_bytes : 0);
   };
-  while (kLL && !block_row && team < 32 && row_sums_bytes(team) > kRowSumsLimit)
-    team *= 2;
-  auto aligned = [](const void* p, uintptr_t a) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
-  };
-  const bool vec4 = D % 4 == 0 && aligned(allele_id, 8) && aligned(qual, 8) &&
-                    aligned(mapq, 8) && aligned(strand, 4) && aligned(valid, 4);
-  const int64_t rows_per_block = block_row ? 1 : kThreads / team;
-  int64_t blocks = (L + rows_per_block - 1) / rows_per_block;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const size_t dynamic =
-      kLL ? static_cast<size_t>(rows_per_block) * (3 * K + 1) * sizeof(float)
-          : 0;
-  if (dynamic > kRowSumsLimit) return cudaErrorInvalidValue;
-  stats_ll_kernel<KMAX, kLL>
-      <<<static_cast<unsigned>(blocks), kThreads, dynamic, stream>>>(
-          static_cast<const int16_t*>(allele_id),
-          static_cast<const int16_t*>(qual), static_cast<const int16_t*>(mapq),
-          static_cast<const uint8_t*>(strand),
-          static_cast<const uint8_t*>(valid),
-          static_cast<const uint8_t*>(is_variant), L, D, K, team, block_row,
-          vec4, alignment, threshold, static_cast<int32_t*>(counts),
-          static_cast<int32_t*>(fwd_counts), static_cast<int32_t*>(depth),
-          static_cast<uint8_t*>(cand), static_cast<float*>(ll));
+  const bool staged = kLL && block_bytes(32, true) <= kMaxSharedBytes;
+  int threads = kLL ? kMaxThreads : kCountThreads;
+  while (threads > 32 && block_bytes(threads, staged) > kBlockBudget)
+    threads >>= 1;
+  const int shared_bytes = block_bytes(threads, staged);
+  if (shared_bytes > kMaxSharedBytes) return cudaErrorInvalidValue;
+  auto* kernel = stats_ll_kernel<kLL, kAlign, kVec, false>;
+  if constexpr (kVec)
+    if (team_log2 == 0) kernel = stats_ll_kernel<kLL, kAlign, true, true>;
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (rc != cudaSuccess) return rc;
+  }
+  // The grid has at most kWarpsPerSm warps for every SM; where the tile has
+  // more rounds of rows than that, a warp walks on from round to round with
+  // the next round's loads in flight.
+  const int64_t n_rounds = (L + rows_per_warp - 1) / rows_per_warp;
+  const int warps = threads / 32;
+  int64_t blocks = (n_rounds + warps - 1) / warps;
+  const int64_t most =
+      (static_cast<int64_t>(sms) * kWarpsPerSm + warps - 1) / warps;
+  if (blocks > most) blocks = most;
+  const bool wide_out = K % 4 == 0 && aligned(counts, 16) &&
+                        aligned(fwd_counts, 16);
+  kernel<<<static_cast<unsigned>(blocks), threads, shared_bytes, stream>>>(
+      static_cast<const int16_t*>(allele_id),
+      static_cast<const int16_t*>(qual), static_cast<const int16_t*>(mapq),
+      static_cast<const uint8_t*>(strand), static_cast<const uint8_t*>(valid),
+      static_cast<const uint8_t*>(is_variant), L, D, K, team_log2, wide_out,
+      staged, threshold, static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(fwd_counts), static_cast<int32_t*>(depth),
+      static_cast<uint8_t*>(cand), static_cast<float*>(ll));
   return cudaGetLastError();
+}
+
+template <bool kLL, bool kAlign>
+cudaError_t launch_route(const void* allele_id, const void* qual,
+                         const void* mapq, const void* strand,
+                         const void* valid, const void* is_variant, int64_t L,
+                         int D, int K, int threshold, void* counts,
+                         void* fwd_counts, void* depth, void* cand, void* ll,
+                         cudaStream_t stream) {
+  // The vector steps need whole groups and aligned planes (a tile that
+  // torch allocated has them whenever D is a multiple of 8).
+  const bool vec = D % kGroup == 0 && aligned(allele_id, 16) &&
+                   aligned(qual, 16) && aligned(mapq, 16) &&
+                   aligned(strand, 8) && aligned(valid, 8);
+  return vec ? launch<kLL, kAlign, true>(allele_id, qual, mapq, strand, valid,
+                                         is_variant, L, D, K, threshold,
+                                         counts, fwd_counts, depth, cand, ll,
+                                         stream)
+             : launch<kLL, kAlign, false>(allele_id, qual, mapq, strand, valid,
+                                          is_variant, L, D, K, threshold,
+                                          counts, fwd_counts, depth, cand, ll,
+                                          stream);
 }
 
 }  // namespace
@@ -464,20 +682,18 @@ int guac_stats_ll(const void* allele_id, const void* qual, const void* mapq,
   const int d = static_cast<int>(D);
   const int thr = threshold < 0 ? -1 : threshold;
   cudaError_t rc;
-  if (K <= 8) {
-    rc = want_ll ? launch<8, true>(allele_id, qual, mapq, strand, valid,
-                                   is_variant, L, d, K, alignment, thr, counts,
-                                   fwd_counts, depth, cand, ll, s)
-                 : launch<8, false>(allele_id, qual, mapq, strand, valid,
-                                    is_variant, L, d, K, alignment, thr, counts,
-                                    fwd_counts, depth, cand, ll, s);
+  if (!want_ll) {
+    rc = launch_route<false, false>(allele_id, nullptr, nullptr, strand, valid,
+                                    is_variant, L, d, K, thr, counts,
+                                    fwd_counts, depth, cand, nullptr, s);
+  } else if (alignment) {
+    rc = launch_route<true, true>(allele_id, qual, mapq, strand, valid,
+                                  is_variant, L, d, K, thr, counts, fwd_counts,
+                                  depth, cand, ll, s);
   } else {
-    rc = want_ll ? launch<16, true>(allele_id, qual, mapq, strand, valid,
-                                    is_variant, L, d, K, alignment, thr,
-                                    counts, fwd_counts, depth, cand, ll, s)
-                 : launch<16, false>(allele_id, qual, mapq, strand, valid,
-                                     is_variant, L, d, K, alignment, thr,
-                                     counts, fwd_counts, depth, cand, ll, s);
+    rc = launch_route<true, false>(allele_id, qual, nullptr, strand, valid,
+                                   is_variant, L, d, K, thr, counts,
+                                   fwd_counts, depth, cand, ll, s);
   }
   return static_cast<int>(rc);
 }

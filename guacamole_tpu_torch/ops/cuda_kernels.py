@@ -46,6 +46,11 @@ LAUNCH_SHAPES = {name: collections.deque(maxlen=4096) for name in LAUNCHES}
 MAX_BLOB_BYTES = 2**31 - 17
 
 
+# The most blocks csr_compact launches (kCompactMaxBlocks in
+# ops/csrc/csr_screen.cu): one int32 of scratch each.
+COMPACT_MAX_BLOCKS = 1024
+
+
 def reset_launches() -> None:
     for table in (LAUNCHES, LL_FORM_LAUNCHES):
         for name in table:
@@ -161,11 +166,15 @@ def csr_compact(
     if dev.type == "cpu":
         return kernels.compact_candidates(candidates, counts, cap)
     out = torch.empty((cap + 1, K + 1), dtype=torch.int32, device=dev)
+    # The block totals of the kernel's two passes. From the caching
+    # allocator, so a call on another stream gets another buffer.
+    scratch = torch.empty(COMPACT_MAX_BLOCKS, dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
         rc = lib.guac_csr_compact(
             candidates.data_ptr(), counts.data_ptr(), L, K, cap,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            scratch.data_ptr(),
         )
     _raise_on(rc, "csr_compact")
     LAUNCHES["csr_compact"] += 1
