@@ -53,27 +53,42 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     VCF equals the host-screen run's record for record and that
     planted-SNV recall and precision are >= 0.9; then the same for an
     --emit-ref range through the 8000x spike;
- 5. runs the port's germline-standard CLI on the same fixture with device
+ 5. runs the counting tools on the same fixture, each with device screens
+    (the full-count form of csr_count_screen: no threshold, no compaction)
+    and with host screens, and checks that the outputs are equal byte for
+    byte, that csr_count_screen launched and no other kernel did:
+    variant-support at the germline-threshold calls of phase 4 (or of one
+    host-screen run) plus one site in an overflow clump, over the germline
+    and the tumor BAM; vaf-histogram --bins 20 --print-stats --cluster over
+    the germline BAM, whose clustering is then fitted once more on the CPU
+    (the largest difference of weights, means and variances is printed and
+    must stay below 1e-3); then structural-variant, which launches nothing,
+    on the paired-end fixture (utils/simulate.make_sv_fixture: 2 Mbp at
+    20x, two planted deletions), where the columnar fast path must equal
+    the object path byte for byte and every planted deletion must be
+    called;
+ 6. runs the port's germline-standard CLI on the same fixture with device
     screens, checks that ll_screen launched, that the VCF equals the
     host-screen run's record for record and that planted-SNV recall is
     >= 0.9; then again with --min-likelihood 30 and 40 (the GQ gate on
     the device), where at 40 precision must be >= 0.9 too;
- 6. runs the port's somatic-standard CLI (--odds 20) on the fixture's
+ 7. runs the port's somatic-standard CLI (--odds 20) on the fixture's
     tumor/normal pair with device screens, checks that ll_screen launched
     and launched its tumor form only, that the VCF equals the host-screen
     run's record for record, that at least half of the planted somatic
     SNVs are called and that at most one germline het in 20 is called
     somatic;
- 7. runs germline-threshold and somatic-standard once more with
+ 8. runs germline-threshold and somatic-standard once more with
     GUAC_DENSE_TILES=1 (full per-element tiles), checks that stats_ll
     launched and no other screen kernel did, and that each VCF equals its
     default run's; then runs the forward step of guacamole_tpu_torch.entry
     on its example tile and on the timed shape against the plain version;
- 8. times all four kernels once more at the median launch of their main
+ 9. times all four kernels once more at the median launch of their main
     path in this run (each main-path run prints the shapes its kernels
     were launched at: min / median / max), back to back and with a cold
-    L2 cache;
- 9. prints one JSON line of kernel results, then, as the last line,
+    L2 cache, and csr_count_screen also at vaf-histogram's median launch
+    in its full-count form;
+10. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -89,6 +104,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -500,25 +516,26 @@ def check_kernels(device) -> dict:
     return records
 
 
-def _time_counting(device, blob, off, words, cold=False):
-    """Both counting kernels on one tile (K = 8, --threshold 25): checked
-    against their plain versions, then timed in turns (plain, kernel,
-    kernel, plain), with their bounds. With cold, also the time of a launch
-    that finds nothing in the L2 cache."""
+def _time_counting(device, blob, off, words, cold=False, threshold=25):
+    """Both counting kernels on one tile (K = 8, --threshold 25, or the
+    full-count form with threshold None): checked against their plain
+    versions, then timed in turns (plain, kernel, kernel, plain), with their
+    bounds. With cold, also the time of a launch that finds nothing in the
+    L2 cache."""
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import kernels as plain
 
     L = off.numel() - 1
     cap = max(512, L // 256)
-    counts, flags = screen_both(blob, off, words, 8, 25)
+    counts, flags = screen_both(blob, off, words, 8, threshold)
     compact_both(flags, counts, cap)
     compact_both(flags, counts, max(int(flags.sum()) - 1, 0))
     n_cand = int(flags.sum())
     K = counts.shape[1]
     calls = {
         "csr_count_screen": (
-            lambda: ck.csr_count_screen(blob, off, words, 8, 25),
-            lambda: plain.csr_count_screen(blob, off, words, 8, 25),
+            lambda: ck.csr_count_screen(blob, off, words, 8, threshold),
+            lambda: plain.csr_count_screen(blob, off, words, 8, threshold),
             # One add per nibble for the counts.
             blob.numel() + off.numel() * 4 + words.numel() * 2
             + L * K * 2 + L,
@@ -1264,6 +1281,20 @@ def time_at_launch_shapes(device, records: dict) -> None:
                  timed[name])
         line(name, made, origin + f" {tuple(shape)}", timed[name],
              records.get(name, {}).get("floor_ms"))
+    # The counting screen in its full-count form, as vaf-histogram launches
+    # it (only when that path ran in this call).
+    shapes = MAIN_PATH_SHAPES.get("vaf-histogram", {}).get("csr_count_screen")
+    if shapes:
+        shape = _median_launch("csr_count_screen", shapes)
+        timed = _time_counting(
+            device, *_csr_tile_of(device, *shape), cold=True, threshold=None)
+        made = (timed["rows"], timed["blob_bytes"])
+        origin = f"vaf-histogram's median launch {tuple(shape)}"
+        if "csr_count_screen" in records:
+            keep(records["csr_count_screen"], "vaf_histogram_", made, origin,
+                 timed["csr_count_screen"])
+        line("csr_count_screen (full counts)", made, origin,
+             timed["csr_count_screen"])
     # The likelihood screen: germline-standard and somatic-standard.
     for path, prefix in (("germline-standard", ""),
                          ("somatic-standard", "tumor_form_")):
@@ -1392,6 +1423,172 @@ def run_threshold_slice(kernel_records: dict, manifest, out) -> None:
     matching = _check_equal_vcfs(vcf("ref_device.vcf"), vcf("ref_host.vcf"))
     print(f"emit-ref {loci}: {matching} records, equal to "
           "host screens", flush=True)
+
+
+def _check_equal_files(a, b):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        check(fa.read() == fb.read(),
+              f"{os.path.basename(a)} and {os.path.basename(b)} differ")
+
+
+def _n_lines(path):
+    with open(path) as fh:
+        return sum(1 for _ in fh)
+
+
+def _only_full_counts(command, launches):
+    """The counting tools take the full-count screen alone."""
+    check(launches["csr_compact"] == 0 and launches["ll_screen"] == 0
+          and launches["stats_ll"] == 0,
+          f"{command} launched more than csr_count_screen: {launches}")
+
+
+def run_tools_slice(kernel_records: dict, manifest, out) -> None:
+    """variant-support and vaf-histogram on the full fixture, each with
+    device screens (the full-count form of csr_count_screen: no threshold,
+    no compaction) against host screens, byte for byte; the VAF clustering
+    fitted on the card and on the CPU; then structural-variant, which
+    launches nothing, on the paired-end fixture with the columnar fast path
+    against the object path."""
+    from guacamole_tpu_torch.callers import vaf_histogram
+    from guacamole_tpu_torch.utils.simulate import make_sv_fixture
+
+    files = manifest["files"]
+    germline = os.path.join(FIXTURE_DIR, files["germline_bam"])
+    tumor = os.path.join(FIXTURE_DIR, files["tumor_bam"])
+
+    def path(name):
+        return os.path.join(out, name)
+
+    # variant-support: the germline-threshold calls as sites (the threshold
+    # phase's VCF, else one host-screen run), plus one site in the overflow
+    # clump at band[0] + 1000, whose alleles outnumber a tile's dictionary
+    # and are counted on the host.
+    calls = path("device.vcf")
+    if not os.path.exists(calls):
+        calls = path("tools_calls.vcf")
+        _run_cli("germline-threshold",
+                 ["--reads", germline, "--threshold", "25", "--out", calls],
+                 host_screen=True)
+    clump = manifest["bands"]["band"][0] + 1000
+    sites = path("tools_sites.vcf")
+    with open(calls) as fh, open(sites, "w") as out_fh:
+        out_fh.write(fh.read())
+        out_fh.write(f"deep1m\t{clump + 1}\t.\tA\tAT\t.\t.\t.\tGT\t0/1\n")
+    with open(sites) as fh:
+        n_sites = sum(1 for ln in fh if not ln.startswith("#"))
+    args = ["-v", sites, germline, tumor]
+    wall, launches, transfers = _main_path_run(
+        "variant-support", args + ["-o", path("support_device.csv")],
+        ("csr_count_screen",), kernel_records,
+        record_as="launches_variant_support",
+    )
+    _only_full_counts("variant-support", launches)
+    host_wall = _run_cli(
+        "variant-support", args + ["-o", path("support_host.csv")],
+        host_screen=True)
+    _check_equal_files(path("support_device.csv"), path("support_host.csv"))
+    with open(path("support_device.csv")) as fh:
+        rows = fh.read().splitlines()
+    at_clump = sum(1 for ln in rows if f", deep1m, {clump}, " in ln)
+    check(len(rows) > n_sites and at_clump > 2 * 8,
+          f"variant-support: {len(rows)} rows, {at_clump} at the clump")
+    print(
+        f"slice: variant-support, {n_sites} sites, germline and tumor BAMs: "
+        f"{len(rows)} allele counts ({at_clump} at the overflow clump "
+        f"deep1m:{clump}), device screens {wall:.3f} s wall, then host "
+        f"{host_wall:.3f} s; equal to host screens byte for byte; launches "
+        f"{launches}; transfers {transfers}; "
+        + _describe_shapes("variant-support"),
+        flush=True,
+    )
+
+    # vaf-histogram, with the fit of its clustering kept for the comparison
+    # of the card's EM with the CPU's.
+    fitted = []
+    fit = vaf_histogram.build_mixture_model
+
+    def fit_and_keep(variant_loci, num_clusters, **kwargs):
+        t0 = time.perf_counter()
+        result = fit(variant_loci, num_clusters, **kwargs)
+        fitted.append((variant_loci, num_clusters, result,
+                       time.perf_counter() - t0))
+        return result
+
+    args = ["--bins", "20", "--print-stats", "--cluster", germline]
+    vaf_histogram.build_mixture_model = fit_and_keep
+    try:
+        wall, launches, transfers = _main_path_run(
+            "vaf-histogram", args + ["--out", path("vaf_device.csv")],
+            ("csr_count_screen",), kernel_records,
+            record_as="launches_vaf_histogram",
+        )
+    finally:
+        vaf_histogram.build_mixture_model = fit
+    _only_full_counts("vaf-histogram", launches)
+    host_wall = _run_cli(
+        "vaf-histogram", args + ["--out", path("vaf_host.csv")],
+        host_screen=True)
+    _check_equal_files(path("vaf_device.csv"), path("vaf_host.csv"))
+    check(len(fitted) == 1, f"vaf-histogram fitted {len(fitted)} models")
+    variant_loci, k, on_card, card_s = fitted[0]
+    t0 = time.perf_counter()
+    on_cpu = fit(variant_loci, k, device=torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(on_card, on_cpu)]
+    check(all(np.isfinite(x).all() for x in on_card) and max(diffs) < 1e-3,
+          f"the EM on the card and on the CPU differ by {diffs}")
+    print(
+        f"slice: vaf-histogram --bins 20 --cluster: "
+        f"{_n_lines(path('vaf_device.csv')) - 1} bins over "
+        f"{len(variant_loci)} variant loci, device screens {wall:.3f} s "
+        f"wall, then host {host_wall:.3f} s; equal to host screens byte for "
+        f"byte; launches {launches}; transfers {transfers}; EM of {k} "
+        f"clusters on the card {card_s:.3f} s, on the CPU {cpu_s:.3f} s, "
+        f"largest |difference| of weights {diffs[0]:.3g}, means "
+        f"{diffs[1]:.3g}, variances {diffs[2]:.3g}; "
+        + _describe_shapes("vaf-histogram"),
+        flush=True,
+    )
+
+    # structural-variant on the paired-end fixture (2 Mbp, 20x, two planted
+    # heterozygous deletions).
+    t0 = time.perf_counter()
+    sv = make_sv_fixture(os.path.join(FIXTURE_DIR, "sv"))
+    sv_s = time.perf_counter() - t0
+    sam = os.path.join(FIXTURE_DIR, "sv", sv["files"]["sv_sam"])
+    walls = {}
+    for api in ("best", "python"):
+        walls[api], launches, transfers = _main_path_run(
+            "structural-variant",
+            ["--reads", sam, "--bam-reader-api", api,
+             "--output", path(f"sv_{api}.txt")],
+            (), kernel_records,
+        )
+        check(not any(launches.values()) and not transfers["h2d_bytes"],
+              f"structural-variant launched kernels: {launches}, "
+              f"{transfers}")
+    _check_equal_files(path("sv_best.txt"), path("sv_python.txt"))
+    with open(path("sv_best.txt")) as fh:
+        text = fh.read()
+    found = [
+        (int(a), int(b))
+        for a, b in re.findall(r"GenomeRange\(\w+,(\d+),(\d+)\)", text)
+    ]
+    missed = [
+        (s, e) for s, e in sv["truth_deletions"]
+        if not any(a < e and b > s for a, b in found)
+    ]
+    check(found and not missed,
+          f"structural-variant: called {found}, missed {missed}")
+    print(
+        f"slice: structural-variant on {sv['counts']['records']} records "
+        f"(fixture {sv_s:.3f} s): {len(found)} ranges {found}, every planted "
+        f"deletion {sv['truth_deletions']} overlapped; columnar fast path "
+        f"{walls['best']:.3f} s, object path {walls['python']:.3f} s, equal "
+        f"byte for byte; launches {launches}; transfers {transfers}",
+        flush=True,
+    )
 
 
 def run_standard_slice(kernel_records: dict, manifest, out) -> None:
@@ -1637,9 +1834,10 @@ def _loaded_forbidden():
 
 
 def profile_callers(manifest, out) -> None:
-    """Not part of the default run: one more germline-standard and one more
-    somatic-standard run with device screens under torch.profiler, to say
-    how long the card was busy and with what."""
+    """Not part of the default run: one more germline-standard, one more
+    somatic-standard and one more vaf-histogram run (the full-count screen,
+    every row's counts brought back) with device screens under
+    torch.profiler, to say how long the card was busy and with what."""
     files = manifest["files"]
     _profile_run(
         "germline-standard",
@@ -1649,6 +1847,10 @@ def profile_callers(manifest, out) -> None:
         ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
          "--normal-reads", os.path.join(FIXTURE_DIR, files["normal_bam"]),
          "--odds", "20"],
+        out)
+    _profile_run(
+        "vaf-histogram",
+        ["--bins", "20", os.path.join(FIXTURE_DIR, files["germline_bam"])],
         out)
 
 
@@ -1696,7 +1898,8 @@ def _profile_run(command, args, out) -> None:
     )
 
 
-PHASES = ("build", "kernels", "threshold", "standard", "somatic", "dense")
+PHASES = ("build", "kernels", "threshold", "tools", "standard", "somatic",
+          "dense")
 EXTRA_PHASES = ("profile", "stats_ll")
 
 
@@ -1719,11 +1922,14 @@ def main(argv) -> int:
         records.update(check_ll_screen(device))
     if set(phases) & {"kernels", "stats_ll"}:
         records.update(check_stats_ll(device))
-    if set(phases) & {"threshold", "standard", "somatic", "dense", "profile"}:
+    if set(phases) & {"threshold", "tools", "standard", "somatic", "dense",
+                      "profile"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
             run_threshold_slice(records, manifest, out)
+        if "tools" in phases:
+            run_tools_slice(records, manifest, out)
         if "standard" in phases:
             run_standard_slice(records, manifest, out)
         if "somatic" in phases:

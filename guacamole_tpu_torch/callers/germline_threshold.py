@@ -47,6 +47,8 @@ HOM_ALT = ("Alt", "Alt")
 HET = ("Ref", "Alt")
 COMPOUND = ("Alt", "OtherAlt")
 
+ALT_PLACEHOLDER = Bases.ALT.decode("ascii")
+
 # Device-side candidate compaction width for variant-only runs: each tile
 # fetches [cap+1, K+1] int32 instead of the full [L, K] counts. Tiles with
 # more candidates than this refetch the full screen (rare).
@@ -128,6 +130,38 @@ def classify_locus(
         "Multiple reference bases found in sample = %s at (chr, pos) = (%s, %d)"
         % (sample_name, contig, locus)
     )
+
+
+def call_variants_at_locus(
+    pileup: Pileup,
+    threshold_percent: int,
+    emit_ref: bool = True,
+    emit_no_call: bool = True,
+) -> List[ThresholdCall]:
+    """Per-pileup API (host oracle path; the tile path is call_tile).
+    Mirrors callVariantsAtLocus (GermlineThresholdCaller.scala:90-178),
+    including its emitRef/emitNoCall defaults."""
+    if not pileup.elements:
+        return []
+    calls: List[ThresholdCall] = []
+    for sample_name, sample_pileup in sorted(pileup.by_sample().items()):
+        counts_map: Dict[Allele, int] = {}
+        for e in sample_pileup.elements:
+            counts_map[e.allele] = counts_map.get(e.allele, 0) + 1
+        calls.extend(
+            classify_locus(
+                sorted(counts_map.items()),
+                sample_pileup.depth,
+                pileup.reference_base,
+                sample_name,
+                pileup.reference_name,
+                pileup.locus,
+                threshold_percent,
+                emit_ref,
+                emit_no_call,
+            )
+        )
+    return calls
 
 
 def call_tile(

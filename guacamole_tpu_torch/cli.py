@@ -1,11 +1,12 @@
 """Command-line interface of the port: `guacamole-torch`.
 
-Ports the germline-threshold, germline-standard, somatic-standard and
-index commands of guacamole_tpu/cli.py onto the PyTorch device layer, with
-the same flags and output. The other callers, the device mesh and the
-multi-process runtime are not ported yet: their flags are accepted and
-refused with a one-line error. Every command that touches a device runs on the GPU
-unless --device cpu asks for the CPU.
+Ports the seven commands of guacamole_tpu/cli.py (germline-threshold,
+germline-standard, somatic-standard, variant-support, vaf-histogram,
+structural-variant and index) onto the PyTorch device layer, with the same
+flags and output. The device mesh and the multi-process runtime are not
+ported yet: their flags are accepted and refused with a one-line error.
+Every command that touches a device runs on the GPU unless --device cpu
+asks for the CPU.
 
     python -m guacamole_tpu_torch.cli germline-threshold --reads x.bam --out x.vcf
 """
@@ -415,6 +416,8 @@ ARG_HELPERS = {
     "distributed": _add_distributed_args,
     "device": _add_device_args,
     "concordance": _add_concordance_args,
+    "read_config": _add_read_loading_args,
+    "default_parallelism": _default_parallelism,
     "refuse_unported": _refuse_unported,
     "resolve_device": _resolve_device,
     "partition": _partition,
@@ -438,6 +441,24 @@ def cmd_somatic_standard(argv: List[str]) -> int:
     rc = run(argv, ARG_HELPERS)
     DelayedMessages.default.print()
     return rc
+
+
+def cmd_variant_support(argv: List[str]) -> int:
+    from guacamole_tpu_torch.callers.variant_support import main as run
+
+    return run(argv, ARG_HELPERS)
+
+
+def cmd_vaf_histogram(argv: List[str]) -> int:
+    from guacamole_tpu_torch.callers.vaf_histogram import main as run
+
+    return run(argv, ARG_HELPERS)
+
+
+def cmd_structural_variant(argv: List[str]) -> int:
+    from guacamole_tpu_torch.callers.structural_variant import main as run
+
+    return run(argv, ARG_HELPERS)
 
 
 def cmd_index(argv: List[str]) -> int:
@@ -471,6 +492,18 @@ COMMANDS = {
     "somatic-standard": (
         cmd_somatic_standard,
         "call somatic variants using independent callers on tumor and normal",
+    ),
+    "variant-support": (
+        cmd_variant_support,
+        "Find number of reads that support each variant across BAMs",
+    ),
+    "vaf-histogram": (
+        cmd_vaf_histogram,
+        "Compute and cluster the variant allele frequencies",
+    ),
+    "structural-variant": (
+        cmd_structural_variant,
+        "Find structural variants, e.g. large deletions",
     ),
     "index": (
         cmd_index,

@@ -102,8 +102,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kThreadRowDepth = 64;   // rows up to this deep take one thread
 constexpr int kMaxGroupRows = 128;    // rows a warp screens for live ones at once
-constexpr int kMaxBlocks = 132 * 8;   // 8 blocks per SM of an H100 SXM
-constexpr int kWantedWarps = 132 * 4;   // a group shrinks only below these
+constexpr int kBlocksPerSm = 8;       // the grid's cap, per SM
+constexpr int kWantedWarpsPerSm = 4;  // a group shrinks only below these
 
 struct QualTable {
   uint8_t q[16];
@@ -431,6 +431,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The device's count of SMs (asked once per device).
+cudaError_t sm_count(int* n) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    rc = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
+                                dev);
+    if (rc != cudaSuccess) return rc;
+  }
+  *n = cached[dev];
+  return *n > 0 ? cudaSuccess : cudaErrorInvalidDevice;
+}
+
 // The step of a row D deep: 16 elements where D allows, else 8, 4 or 1.
 // It depends on D alone, so both encodings of a tile are cut alike.
 int step_of(int D) {
@@ -442,6 +458,9 @@ cudaError_t launch(const void* pack, const void* mapq, const void* flag_words,
                    const QualTable& qt, int64_t L, int D, int n_alleles,
                    float margin, bool use_gate, float gq_floor, void* out,
                    cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t asked = sm_count(&sms);
+  if (asked != cudaSuccess) return asked;
   const int step = step_of(D);
   const int n_steps = D / step;
   // One thread per row up to kThreadRowDepth; beyond it the largest team of
@@ -459,11 +478,12 @@ cudaError_t launch(const void* pack, const void* mapq, const void* flag_words,
   const int rows_per_round = 32 >> team_log2;
   int group_rows = team_log2 == 0 ? kMaxGroupRows : rows_per_round;
   while (group_rows > rows_per_round &&
-         L < static_cast<int64_t>(group_rows) * kWantedWarps)
+         L < static_cast<int64_t>(group_rows) * kWantedWarpsPerSm * sms)
     group_rows >>= 1;
   const int64_t n_groups = (L + group_rows - 1) / group_rows;
   int64_t blocks = (n_groups + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int64_t max_blocks = static_cast<int64_t>(kBlocksPerSm) * sms;
+  if (blocks > max_blocks) blocks = max_blocks;
   ll_screen_kernel<PackT, kTumor, K>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const PackT*>(pack), static_cast<const uint8_t*>(mapq),

@@ -4,8 +4,8 @@ module of the JAX package guacamole_tpu.
 A machine with a GPU need not have JAX installed, and the port stands
 alone: it keeps its own copies of the host layers. A subprocess with both
 `jax` and `guacamole_tpu` blocked imports every port module and runs each
-of the port's caller commands, and its forward step, to the end on the
-CPU.
+of the port's caller commands (variant-support, vaf-histogram and
+structural-variant too), and its forward step, to the end on the CPU.
 """
 
 import os
@@ -94,6 +94,56 @@ def test_port_runs_somatic_standard_with_jax_blocked(tmp_path, fixture_files):
     )
 
 
+def _main_blocked(*argvs):
+    """Body for _run_code_blocked: run the port's CLI on each argv in
+    turn, on the CPU; rc is the first non-zero exit code."""
+    body = "from guacamole_tpu_torch.cli import main\nrc = 0\n"
+    for argv in argvs:
+        body += (
+            f"rc = rc or main([*{argv!r}, '--device', 'cpu', '--debug'])\n"
+        )
+    return body
+
+
+def _lines(path):
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
+def test_port_runs_variant_support_with_jax_blocked(tmp_path, fixture_files):
+    sites, out = str(tmp_path / "sites.vcf"), str(tmp_path / "support.csv")
+    _run_code_blocked(_main_blocked(
+        ["germline-threshold", "--reads", fixture_files["germline_bam"],
+         "--threshold", "25", "--out", sites],
+        ["variant-support", "-v", sites, "-o", out,
+         fixture_files["germline_bam"], fixture_files["tumor_bam"]],
+    ))
+    assert len(_lines(out)) >= 200
+
+
+def test_port_runs_vaf_histogram_with_jax_blocked(tmp_path, fixture_bam):
+    out = str(tmp_path / "vaf.csv")
+    _run_code_blocked(_main_blocked(
+        ["vaf-histogram", "--cluster", "--out", out, fixture_bam],
+    ))
+    assert len(_lines(out)) >= 10
+
+
+def test_port_runs_structural_variant_with_jax_blocked(tmp_path):
+    from guacamole_tpu.utils.simulate import make_sv_fixture
+
+    manifest = make_sv_fixture(
+        str(tmp_path), length=250_000, depth=16,
+        deletions=((90_000, 4_000),), seed=11,
+    )
+    sam, out = str(tmp_path / manifest["files"]["sv_sam"]), str(
+        tmp_path / "sv.txt")
+    _run_code_blocked(_main_blocked(
+        ["structural-variant", "--reads", sam, "--output", out],
+    ))
+    assert "GenomeRange(svcontig,89953,94056)" in _lines(out)[0]
+
+
 def test_port_runs_its_forward_step_with_jax_blocked():
     _run_code_blocked(
         "from guacamole_tpu_torch.entry import entry\n"
@@ -111,6 +161,8 @@ def _run_code_blocked(body):
     modules = port_modules()
     assert "guacamole_tpu_torch.cli" in modules
     assert "guacamole_tpu_torch.callers.somatic_standard" in modules
+    assert "guacamole_tpu_torch.callers.vaf_histogram" in modules
+    assert "guacamole_tpu_torch.assembly.debruijn" in modules
     assert "guacamole_tpu_torch.entry" in modules
     code = (
         "import importlib, sys\n"

@@ -32,6 +32,8 @@ filters/pileup_filters filters/somatic_filters
 pack/__init__ pack/columnar pack/events pack/fast pack/tiles
 runtime/__init__ runtime/columnar
 likelihood concordance callers/common callers/streaming
+windowing engine alignment/__init__ alignment/affine_gap
+assembly/__init__ assembly/debruijn
 """.split()
 
 # The rewrite: the package's name; and three things a copy does not carry
@@ -139,6 +141,113 @@ def test_somatic_caller_differs_only_in_the_device_plumbing():
     assert "sum(" not in "".join(
         line for line in want.splitlines(True) if "normal_variants_total" in line
     )
+
+
+def _top_level(text):
+    """{name: source} of the top-level functions and classes of a module
+    (decorators included), and the preamble before the first of them from
+    the `from __future__` line on (the module docstrings differ)."""
+    import ast
+
+    lines = text.splitlines(True)
+    nodes = [
+        n for n in ast.parse(text).body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+    ]
+    first = min(
+        [n.lineno] + [d.lineno for d in n.decorator_list] for n in nodes
+    )[0]
+    parts = {}
+    for n in nodes:
+        start = min([n.lineno] + [d.lineno for d in n.decorator_list])
+        parts[n.name] = "".join(lines[start - 1 : n.end_lineno])
+    head = "".join(lines[: first - 1])
+    return head[head.index("from __future__"):], parts
+
+
+def _tail_from(source, marker):
+    return source[source.index(marker):]
+
+
+def _assert_differs_only_in(module, differing, head_edits=(), added=()):
+    """The port's copy of `module` equals the original after the rename
+    but for its module docstring, the import edits `head_edits`, the
+    top-level functions named in `differing` ({name: marker}: from the
+    marker to the function's end the two still agree; {name: (marker,
+    [(old, new)])}: they agree after those edits of the original; None:
+    the whole function differs), and the helper functions `added`."""
+    want_head, want = _top_level(_rewritten(module))
+    got_head, got = _top_level(_read(PORT_PKG, module))
+    for old, new in head_edits:
+        assert want_head.count(old) == 1, old
+        want_head = want_head.replace(old, new)
+    assert got_head == want_head
+    assert set(got) == set(want) | set(added)
+    for name, source in want.items():
+        if name not in differing:
+            assert got[name] == source, name
+        elif differing[name] is not None:
+            marker, edits = differing[name], ()
+            if isinstance(marker, tuple):
+                marker, edits = marker
+            tail = _tail_from(source, marker)
+            for old, new in edits:
+                assert tail.count(old) == 1, old
+                tail = tail.replace(old, new)
+            assert _tail_from(got[name], marker) == tail, name
+    return got
+
+
+def test_variant_support_differs_only_in_the_screen_wiring_and_main():
+    """callers/variant_support.py: pileup_allele_counts screens on an
+    explicit device with the port's pipelined_screens (no mesh), and main
+    takes --device and the refusals and drops the multi-process branches.
+    The tile flattening, with its overflow fallback, is the original."""
+    _assert_differs_only_in(
+        "callers/variant_support",
+        {
+            "pileup_allele_counts":
+                "    for (contig, tile), pending in screen_iter:",
+            "main": None,
+        },
+        head_edits=[
+            ("import numpy as np\n\n", "import numpy as np\nimport torch\n"),
+            ("pipelined_batched_screens", "pipelined_screens"),
+        ],
+    )
+
+
+def test_vaf_histogram_differs_only_in_the_screen_wiring_the_em_and_main():
+    """callers/vaf_histogram.py: the screen loop takes an explicit device
+    (variant_loci_from_reads passes it on), the EM step is torch on that
+    device (_em_step), and main takes --device and the refusals and drops
+    the multi-process branches. The VAF emit loop after the screen, the
+    streaming entry, the stats and the binning are the original."""
+    got = _assert_differs_only_in(
+        "callers/vaf_histogram",
+        {
+            "variant_loci_from_reads": (
+                "    source = (", [("mesh=mesh", "device=device")]
+            ),
+            "_variant_loci_over_tasks": "    min_vaf = ",
+            "build_mixture_model": "    for i in range(k):",
+            "main": None,
+        },
+        head_edits=[
+            ("import numpy as np\n", "import numpy as np\nimport torch\n"),
+            ("pipelined_batched_screens", "pipelined_screens"),
+        ],
+        added=["_em_step"],
+    )
+    assert "jax" not in got["build_mixture_model"] + got["_em_step"]
+
+
+def test_structural_variant_differs_only_in_main():
+    """callers/structural_variant.py: main takes --device and the
+    refusals and drops the multi-process contig split and gathers;
+    everything above it (statistics, graph, cliques, the columnar fast
+    path) is the original."""
+    _assert_differs_only_in("callers/structural_variant", {"main": None})
 
 
 def test_platform_keeps_the_allocator_tuning_only():
