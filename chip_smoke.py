@@ -83,12 +83,30 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     launched and no other screen kernel did, and that each VCF equals its
     default run's; then runs the forward step of guacamole_tpu_torch.entry
     on its example tile and on the timed shape against the plain version;
- 9. times all four kernels once more at the median launch of their main
+ 9. drives the device mesh (parallel/mesh.py): mesh_csr_screens (threshold
+    25 and full counts) and mesh_ll_screens (germline uint8, tumor) over a
+    mesh of cuda:0 and of cuda:0 twice (two shards, two streams) on seven
+    fixture tiles each (a partial last group), every output equal to the
+    sequential dispatch's on the same tiles with tolerance 0, in its
+    order, with its launches and no others; then the CLI with --mesh on
+    for germline-threshold, germline-standard, somatic-standard,
+    variant-support and vaf-histogram on the full fixture, each output
+    equal to that command's default run (record for record, the CSVs byte
+    for byte), with its wall, launches and H2D/D2H bytes; then
+    dryrun_multichip(2) on the card;
+10. drives the multi-process runtime (parallel/multihost.py): two CLI
+    processes in a gloo group on localhost, both on cuda:0, for
+    germline-threshold and somatic-standard on the full fixture, each
+    merged output equal to the single-process run's, with both walls; then
+    a run whose process 1 dies before the merge (exit 43) and whose
+    process 0 must exit 42, and --recover in one process, whose output
+    must equal the single-process run's byte for byte;
+11. times all four kernels once more at the median launch of their main
     path in this run (each main-path run prints the shapes its kernels
     were launched at: min / median / max), back to back and with a cold
     L2 cache, and csr_count_screen also at vaf-histogram's median launch
     in its full-count form;
-10. prints one JSON line of kernel results, then, as the last line,
+12. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -1159,12 +1177,14 @@ def _check_equal_vcfs(a, b):
 
 
 def _main_path_run(command, argv, kernels, kernel_records,
-                   record_as="launches"):
+                   record_as="launches", path=None):
     """One run of a main path with device screens, the launch counts and
     transfer counters set to 0 just before it and read just after. The
     counts of `kernels` must be above 0 and go into their records under
     `record_as` (a kernel that several paths launch keeps its first path's
-    count under "launches" and the others beside it)."""
+    count under "launches" and the others beside it). Its launch shapes
+    are kept under `path` (by default the command, " dense" added with
+    the dense switch)."""
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import dispatch
 
@@ -1174,7 +1194,9 @@ def _main_path_run(command, argv, kernels, kernel_records,
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     transfers = dict(dispatch.TRANSFER_STATS)
-    path = command + (" dense" if os.environ.get("GUAC_DENSE_TILES") else "")
+    if path is None:
+        path = command + (
+            " dense" if os.environ.get("GUAC_DENSE_TILES") else "")
     MAIN_PATH_SHAPES[path] = {
         name: list(shapes) for name, shapes in ck.LAUNCH_SHAPES.items()
         if shapes
@@ -1823,6 +1845,319 @@ def run_dense_slice(kernel_records: dict, manifest, out, device) -> None:
           "entry() did not launch stats_ll once per call")
 
 
+# --- the mesh and the multi-process runtime -----------------------------
+
+
+def _mesh_screen_tiles(manifest, sample, fields, region, tile_size, **kw):
+    """The first seven non-empty tiles of one fixture BAM over `region`,
+    packed by the port."""
+    from guacamole_tpu_torch.callers.common import load_read_source
+    from guacamole_tpu_torch.loci.lociset import parse_loci
+    from guacamole_tpu_torch.reads.read import InputFilters
+
+    loci = parse_loci(region)
+    source, _ = load_read_source(
+        os.path.join(FIXTURE_DIR, manifest["files"][sample]),
+        InputFilters.create(overlaps_loci=loci, non_duplicate=True,
+                            has_mdtag=True),
+    )
+    loci_set = loci.result()
+    tiles = [
+        t for contig in loci_set.contigs
+        for t in source.iter_tiles(contig, loci_set.on_contig(contig),
+                                   tile_size=tile_size, fields=fields, **kw)
+        if t.L
+    ]
+    check(len(tiles) >= 7, f"{region}: {len(tiles)} tiles, expected 7")
+    return tiles[:7]
+
+
+def _check_mesh_screens(device, manifest) -> str:
+    """mesh_csr_screens (threshold 25 and full counts) and mesh_ll_screens
+    (germline uint8, tumor) over a mesh of cuda:0 and of cuda:0 twice
+    (two streams), on seven fixture tiles each (the last group of two is
+    partial): every output equal to the sequential dispatch's on the same
+    tiles (tolerance 0: integers and flags), in the sequential order, and
+    only the expected kernel launched, as many times as sequentially."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+    from guacamole_tpu_torch.ops import dispatch
+    from guacamole_tpu_torch.parallel.mesh import (
+        csr_of,
+        loci_mesh,
+        mesh_csr_screens,
+        mesh_ll_screens,
+    )
+
+    spike = manifest["bands"]["spike"][0] // 4096 * 4096
+    ll_region = f"deep1m:{spike - 3 * 4096}-{spike + 4 * 4096}"
+    # Seven CSR tiles of 64k rows from the contig's start (through the band
+    # and the spike at scale 1.0).
+    step = min(1 << 16, manifest["contigs"]["deep1m"] // 7 // 4096 * 4096)
+    csr_tiles = _mesh_screen_tiles(
+        manifest, "germline_bam", "screen", f"deep1m:0-{7 * step}", step)
+    germline_tiles = _mesh_screen_tiles(
+        manifest, "germline_bam", "likelihood", ll_region, 4096, min_mapq=1)
+    tumor_tiles = _mesh_screen_tiles(
+        manifest, "tumor_bam", "likelihood_mapq", ll_region, 4096,
+        min_mapq=1, ll_screen_kind=2)
+    cases = [
+        ("csr threshold 25", csr_tiles, "csr_count_screen", None,
+         lambda t, dev: dispatch.screen_csr_launch(
+             *csr_of(t), np.asarray(t.is_variant), t.K, threshold_percent=25,
+             device=dev),
+         lambda items, mesh: mesh_csr_screens(
+             items, lambda t: t, mesh, threshold_percent=25)),
+        ("csr full counts", csr_tiles, "csr_count_screen", None,
+         lambda t, dev: dispatch.screen_csr_launch(
+             *csr_of(t), np.asarray(t.is_variant), t.K, device=dev),
+         lambda items, mesh: mesh_csr_screens(items, lambda t: t, mesh)),
+        ("ll germline", germline_tiles, "ll_screen", "germline_",
+         lambda t, dev: dispatch.germline_screen_launch(
+             t, min_mapq=1, min_phred=30.0, device=dev),
+         lambda items, mesh: mesh_ll_screens(
+             items, lambda t: t, mesh, min_mapq=1, min_phred=30.0)),
+        ("ll tumor", tumor_tiles, "ll_screen", "tumor_",
+         lambda t, dev: dispatch.tumor_screen_launch(t, min_mapq=1,
+                                                     device=dev),
+         lambda items, mesh: mesh_ll_screens(
+             items, lambda t: t, mesh, include_alignment=True, min_mapq=1)),
+    ]
+    meshes = (loci_mesh([device]), loci_mesh([device, device]))
+    notes = []
+    for what, tiles, kernel, form, sequential, meshed in cases:
+        ck.reset_launches()
+        want = [sequential(t, device).result() for t in tiles]
+        seq_launches = dict(ck.LAUNCHES)
+        for mesh in meshes:
+            ck.reset_launches()
+            got = list(meshed(tiles, mesh))
+            torch.cuda.synchronize()
+            check([item for item, _p in got] == tiles,
+                  f"mesh {what} over {mesh}: not in the sequential order")
+            check([p.shard for _t, p in got]
+                  == [k % mesh.size for k in range(len(tiles))],
+                  f"mesh {what} over {mesh}: shards not taken in turn")
+            for (tile, pending), res in zip(got, want):
+                out = pending.result()
+                if kernel == "csr_count_screen":
+                    check(np.array_equal(out.counts, res.counts[: tile.L])
+                          and np.array_equal(out.candidates,
+                                             res.candidates[: tile.L]),
+                          f"mesh {what} over {mesh}: outputs differ")
+                else:
+                    check(np.array_equal(out, res[: tile.L]),
+                          f"mesh {what} over {mesh}: flags differ")
+            launches = dict(ck.LAUNCHES)
+            check(launches == seq_launches and launches[kernel] > 0
+                  and not any(n for k, n in launches.items() if k != kernel),
+                  f"mesh {what} over {mesh}: launches {launches}, "
+                  f"sequentially {seq_launches}")
+            if form is not None:
+                forms = sum(n for f, n in ck.LL_FORM_LAUNCHES.items()
+                            if f.startswith(form))
+                check(forms == launches["ll_screen"],
+                      f"mesh {what}: forms {ck.LL_FORM_LAUNCHES}")
+        notes.append(f"{what} {len(tiles)} tiles, {seq_launches[kernel]} "
+                     f"{kernel} launches"
+                     + (f" {dict(ck.LL_FORM_LAUNCHES)}" if form else ""))
+    return "; ".join(notes)
+
+
+def run_mesh_slice(kernel_records: dict, manifest, out, device) -> None:
+    """The mesh (parallel/mesh.py): (a) the mesh screens against the
+    sequential dispatch on fixture tiles, over one and two shards of
+    cuda:0; (b) the CLI with --mesh on for the five device commands on the
+    full fixture, each output equal to its default run's; (c)
+    dryrun_multichip(2) on the card."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    note = _check_mesh_screens(device, manifest)
+    print(f"mesh screens over [cuda:0] and [cuda:0, cuda:0] equal to the "
+          f"sequential dispatch, in its order, with its launches: {note} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+
+    def path(name):
+        return os.path.join(out, name)
+
+    files = manifest["files"]
+    germline = os.path.join(FIXTURE_DIR, files["germline_bam"])
+    tumor = os.path.join(FIXTURE_DIR, files["tumor_bam"])
+    pair = ["--tumor-reads", tumor, "--normal-reads",
+            os.path.join(FIXTURE_DIR, files["normal_bam"])]
+    sites = path("tools_sites.vcf")
+    runs = [
+        ("germline-threshold", ["--reads", germline, "--threshold", "25",
+                                "--out"], "device.vcf", "csr_count_screen"),
+        ("germline-standard", ["--reads", germline, "--out"],
+         "std_device.vcf", "ll_screen"),
+        ("somatic-standard", [*pair, "--odds", "20", "--out"],
+         "som_device.vcf", "ll_screen"),
+        ("variant-support", ["-v", sites, germline, tumor, "-o"],
+         "support_device.csv", "csr_count_screen"),
+        ("vaf-histogram", ["--bins", "20", "--print-stats", "--cluster",
+                           germline, "--out"],
+         "vaf_device.csv", "csr_count_screen"),
+    ]
+    if not os.path.exists(sites):  # the tools phase was not run
+        calls = path("device.vcf")
+        if not os.path.exists(calls):
+            _run_cli("germline-threshold", runs[0][1] + [calls],
+                     host_screen=False)
+        with open(calls) as fh, open(sites, "w") as out_fh:
+            out_fh.write(fh.read())
+    for command, args, default_out, kernel in runs:
+        default_wall = None
+        if not os.path.exists(path(default_out)):  # its phase was not run
+            default_wall = _run_cli(command, args + [path(default_out)],
+                                    host_screen=False)
+        mesh_out = path("mesh_" + default_out)
+        wall, launches, transfers = _main_path_run(
+            command, args + [mesh_out, "--mesh", "on"], (kernel,),
+            kernel_records, path=command + " mesh",
+            record_as="launches_mesh_" + command.replace("-", "_"),
+        )
+        others = {k: v for k, v in launches.items() if k != kernel and v}
+        check(not others,
+              f"{command} --mesh on launched other kernels: {others}")
+        if default_out.endswith(".csv"):
+            _check_equal_files(mesh_out, path(default_out))
+            same = "byte for byte"
+        else:
+            same = f"{_check_equal_vcfs(mesh_out, path(default_out))} records"
+        print(
+            f"slice: {command} --mesh on (a mesh of cuda:0): equal to the "
+            f"default run ({same}), {wall:.3f} s wall"
+            + (f" (default run just before: {default_wall:.3f} s)"
+               if default_wall is not None else "")
+            + f"; launches {launches}; H2D {transfers['h2d_bytes']} B in "
+            f"{transfers['h2d_calls']} copies, D2H {transfers['d2h_bytes']} B "
+            f"in {transfers['d2h_calls']} copies; "
+            + _describe_shapes(command + " mesh"),
+            flush=True,
+        )
+    from guacamole_tpu_torch.entry import dryrun_multichip
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    line = dryrun_multichip(2)
+    wall = time.perf_counter() - t0
+    check(line.startswith("dryrun_multichip(2): OK")
+          and "'cuda:0', 'cuda:0'" in line, f"dryrun_multichip: {line}")
+    check(ck.LAUNCHES["stats_ll"] == 2,
+          f"dryrun_multichip(2) launched {ck.LAUNCHES}")
+    if "stats_ll" in kernel_records:
+        kernel_records["stats_ll"]["launches_dryrun_multichip"] = 2
+    print(f"dryrun_multichip(2) on the card: {wall:.3f} s, launches "
+          f"{dict(ck.LAUNCHES)}", flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _two_processes(argv, logs, env1=None, timeout=300):
+    """Run `python -m guacamole_tpu_torch.cli argv` as processes 0 and 1 of
+    a gloo group on localhost, both on cuda:0 with device screens. Returns
+    their exit codes and walls (s); kills both if they outlive `timeout`."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs, starts = [], []
+    env = dict(os.environ, GUAC_HOST_SCREEN="0")
+    try:
+        for pid in range(2):
+            with open(logs[pid], "w") as log:
+                starts.append(time.perf_counter())
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "guacamole_tpu_torch.cli", *argv,
+                     "--coordinator", coordinator, "--num-processes", "2",
+                     "--process-id", str(pid), "--timeout", "60"],
+                    cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(env, **(env1 or {})) if pid else env,
+                ))
+        codes, walls = [], []
+        for proc, start in zip(procs, starts):
+            codes.append(proc.wait(timeout=timeout))
+            walls.append(time.perf_counter() - start)
+        return codes, walls
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _tail(path, n=5):
+    with open(path) as fh:
+        return "".join(fh.readlines()[-n:])
+
+
+def run_multiprocess_slice(manifest, out) -> None:
+    """Two processes of the port's CLI in a gloo group on localhost, both
+    on cuda:0: germline-threshold and somatic-standard on the full
+    fixture, each merged output equal to the single-process default run's;
+    then a run whose process 1 dies before the merge (exit 43), whose
+    process 0 must exit 42, and --recover in one process, which must write
+    output byte-equal to the single-process run and remove the shards."""
+    files = manifest["files"]
+
+    def path(name):
+        return os.path.join(out, name)
+
+    germline = ["--reads", os.path.join(FIXTURE_DIR, files["germline_bam"]),
+                "--threshold", "25"]
+    somatic = ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
+               "--normal-reads",
+               os.path.join(FIXTURE_DIR, files["normal_bam"]), "--odds", "20"]
+    for command, args, default_out in (
+        ("germline-threshold", germline, "device.vcf"),
+        ("somatic-standard", somatic, "som_device.vcf"),
+    ):
+        if not os.path.exists(path(default_out)):  # its phase was not run
+            _run_cli(command, args + ["--out", path(default_out)],
+                     host_screen=False)
+        merged = path("mp_" + default_out)
+        logs = [path(f"mp_{command}_p{i}.log") for i in range(2)]
+        codes, walls = _two_processes(
+            [command, *args, "--out", merged], logs)
+        check(codes == [0, 0],
+              f"two-process {command} exited {codes}: "
+              f"{_tail(logs[0])} / {_tail(logs[1])}")
+        matching = _check_equal_vcfs(merged, path(default_out))
+        check(not os.path.exists(merged + ".shards"),
+              f"two-process {command} left its shard files")
+        print(f"slice: {command}, two processes on cuda:0 over gloo: merged "
+              f"output equal to the single-process run ({matching} "
+              f"records); walls {walls[0]:.3f} s (process 0) and "
+              f"{walls[1]:.3f} s (process 1), start-up included", flush=True)
+    # Recovery: process 1 dies before it persists or merges anything.
+    rec = path("mp_recover.vcf")
+    logs = [path(f"mp_recover_p{i}.log") for i in range(2)]
+    codes, walls = _two_processes(
+        ["germline-threshold", *germline, "--out", rec], logs,
+        env1={"GUAC_TEST_EXIT_BEFORE_MERGE": "1"})
+    check(codes == [42, 43],
+          f"killed run: exit codes {codes}, expected [42, 43]: "
+          f"{_tail(logs[0])} / {_tail(logs[1])}")
+    check(not os.path.exists(rec) and os.path.isdir(rec + ".shards")
+          and os.listdir(rec + ".shards") == ["shard-0-of-2.pkl"],
+          "the survivor did not leave its shard alone on disk")
+    wall = _run_cli("germline-threshold", germline + ["--out", rec,
+                                                      "--recover"],
+                    host_screen=False)
+    _check_equal_files(rec, path("device.vcf"))
+    check(not os.path.exists(rec + ".shards"),
+          "--recover left the shard files")
+    print(f"slice: recovery: process 1 exited 43 (fault hook) after "
+          f"{walls[1]:.3f} s, process 0 exited 42 after {walls[0]:.3f} s "
+          f"with its shard on disk; --recover in one process {wall:.3f} s, "
+          f"output equal to the single-process run byte for byte, shard "
+          f"files removed", flush=True)
+
+
 def _loaded_forbidden():
     return sorted(
         m for m, mod in sys.modules.items()
@@ -1899,7 +2234,7 @@ def _profile_run(command, args, out) -> None:
 
 
 PHASES = ("build", "kernels", "threshold", "tools", "standard", "somatic",
-          "dense")
+          "dense", "mesh", "multiprocess")
 EXTRA_PHASES = ("profile", "stats_ll")
 
 
@@ -1923,7 +2258,7 @@ def main(argv) -> int:
     if set(phases) & {"kernels", "stats_ll"}:
         records.update(check_stats_ll(device))
     if set(phases) & {"threshold", "tools", "standard", "somatic", "dense",
-                      "profile"}:
+                      "mesh", "multiprocess", "profile"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
@@ -1936,6 +2271,10 @@ def main(argv) -> int:
             run_somatic_slice(records, manifest, out)
         if "dense" in phases:
             run_dense_slice(records, manifest, out, device)
+        if "mesh" in phases:
+            run_mesh_slice(records, manifest, out, device)
+        if "multiprocess" in phases:
+            run_multiprocess_slice(manifest, out)
         if "profile" in phases:
             profile_callers(manifest, out)
     if "kernels" in phases:

@@ -228,15 +228,15 @@ def call_variants(
 
     reads: a list of MappedReads or a ReadSource (columnar or object); may
     be None when task_sources is given.
-    mesh: screens spread over several devices are not yet ported; anything
-    but None is refused.
+    mesh: a parallel.mesh.LociMesh — when given, the genotype-likelihood
+    screen runs in groups of mesh.size tiles, each tile on its own shard
+    (device and CUDA stream); the exact f64 confirm is unchanged, so
+    output is identical (pinned by tests/test_torch_mesh.py).
     task_sources: an iterator of (task, task_loci, ReadSource) — the
     streaming per-task .bai-pushdown input (callers/streaming.py); when
     given, each task's tiles pack from its own source."""
     from guacamole_tpu_torch.callers.source import ReadSource
 
-    if mesh is not None:
-        raise NotImplementedError("--mesh on is not yet ported")
     calls: List[CalledAllele] = []
 
     if task_sources is None:
@@ -277,10 +277,10 @@ def call_variants(
     # computes the same factored likelihood-screen rule during the CSR
     # single pass (guac_pack.cpp ll_candidates, f64), so no dense
     # [L, D] likelihood tiles and no device kernels are built at all.
-    # On a GPU the device screen path is used. The two screens see
-    # different candidates by design (f64 native vs the f32 superset);
-    # only the calls after the exact confirm are equal.
-    host_screen = screen_on_host(device)
+    # On a GPU (or with a mesh) the device screen path is used. The two
+    # screens see different candidates by design (f64 native vs the f32
+    # superset); only the calls after the exact confirm are equal.
+    host_screen = mesh is None and screen_on_host(device)
     screen_fields = "screen" if host_screen else "likelihood"
 
     def tiles():
@@ -290,7 +290,11 @@ def call_variants(
                     for tile in sample_source.iter_tiles(
                         contig,
                         task_loci.on_contig(contig),
-                        tile_size=tile_size,
+                        # mesh mode screens one whole tile per shard —
+                        # keep classic tiles there; otherwise auto.
+                        tile_size=(
+                            tile_size if mesh is None else (tile_size or 4096)
+                        ),
                         max_alleles=max_alleles,
                         reference_genome=reference_genome,
                         fields=screen_fields,
@@ -372,9 +376,20 @@ def call_variants(
     from guacamole_tpu_torch.ops.dispatch import prefetch_iter
 
     def screened():
-        # Per-tile async launches: each packed tile's screen launches at
-        # once and overlaps the packing of the next.
-        screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
+        if mesh is not None:
+            from guacamole_tpu_torch.parallel.mesh import mesh_ll_screens
+
+            screen_iter = mesh_ll_screens(
+                prefetch_iter(tiles(), ahead=2),
+                tile_of=lambda item: item[3],
+                mesh=mesh,
+                min_mapq=min_alignment_quality,
+                min_phred=float(prefilter_min_likelihood),
+            )
+        else:
+            # Per-tile async launches: each packed tile's screen launches
+            # at once and overlaps the packing of the next.
+            screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
         for item, pending in screen_iter:
             sample_name, sample_source, contig, tile = item
             if pending is None:
@@ -494,7 +509,8 @@ def _prefilter_min_likelihood(args) -> int:
     return 0
 
 
-def _try_streaming(args, loci_builder, reference, filters, _add_fns, device):
+def _try_streaming(args, loci_builder, reference, mesh, filters, _add_fns,
+                   device):
     """Streaming germline-standard (per-task .bai pushdown). Returns
     (calls, contig_lengths) or (None, None) when unavailable."""
     try:
@@ -517,6 +533,7 @@ def _try_streaming(args, loci_builder, reference, filters, _add_fns, device):
         emit_ref=args.emit_ref,
         tile_size=args.tile_size,
         reference_genome=reference,
+        mesh=mesh,
         prefilter_min_likelihood=_prefilter_min_likelihood(args),
         device=device,
     )
@@ -566,13 +583,18 @@ def main(argv, _add_fns) -> int:
         help="Print count of genotypes after each filtering step",
     )
     args = p.parse_args(argv)
-    # One device, one process: --mesh on and the multi-process flags are
-    # refused until the mesh and the multi-process runtime are ported.
-    _add_fns["refuse_unported"](args)
     device = _add_fns["resolve_device"](args)
 
     validate_output_path(args.out)
     loci_builder = resolve_loci_builder(args.loci, args.loci_from_file)
+    mh = _add_fns["bootstrap_multihost"](args)
+    loci_builder, empty_shard = _add_fns["multihost_shard_builder"](
+        mh, loci_builder, args.reads, args
+    )
+    if empty_shard:
+        from guacamole_tpu_torch.loci.lociset import parse_loci
+
+        loci_builder = parse_loci("")  # no loci: loads nothing, calls nothing
     reference = (
         ReferenceGenome.from_fasta(args.reference_fasta)
         if args.reference_fasta
@@ -581,11 +603,12 @@ def main(argv, _add_fns) -> int:
     filters = InputFilters.create(
         overlaps_loci=loci_builder, non_duplicate=True, has_mdtag=True
     )
+    mesh = _add_fns["resolve_mesh"](args)
     calls = None
     contig_lengths = None
-    if _add_fns["streaming_eligible"](args):
+    if not empty_shard and _add_fns["streaming_eligible"](args):
         calls, contig_lengths = _try_streaming(
-            args, loci_builder, reference, filters, _add_fns, device
+            args, loci_builder, reference, mesh, filters, _add_fns, device
         )
     if calls is None:
         source, contig_lengths = load_read_source(
@@ -597,6 +620,12 @@ def main(argv, _add_fns) -> int:
             use_native=args.bam_reader_api in ("best", "native"),
         )
         progress("Loaded %d mapped non-duplicate reads." % source.n)
+        if mh.active:
+            totals = _add_fns["multihost_counters"](mh, reads=source.n)
+            progress(
+                "Global: %d reads across %d processes."
+                % (totals["reads"], mh.process_count)
+            )
         loci_set = loci_builder.result(contig_lengths)
         partitions = _add_fns["partition"](args, loci_set, source)
         calls = call_variants(
@@ -606,6 +635,7 @@ def main(argv, _add_fns) -> int:
             emit_ref=args.emit_ref,
             tile_size=args.tile_size,
             reference_genome=reference,
+            mesh=mesh,
             prefilter_min_likelihood=_prefilter_min_likelihood(args),
             device=device,
         )
@@ -618,14 +648,18 @@ def main(argv, _add_fns) -> int:
         debug=args.debug_genotype_filters,
     )
     progress("Called %d genotypes after filtering." % len(filtered))
-    records = [called_allele_to_vcf_record(c) for c in filtered]
-    write_variants(
-        records,
-        args.out,
-        contig_lengths=contig_lengths,
-        max_genotypes=args.max_genotypes,
-        vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+    records = _add_fns["multihost_finalize"](
+        mh, [called_allele_to_vcf_record(c) for c in filtered], args
     )
-    if args.truth:
-        _add_fns["print_concordance"](args, records)
+    if mh.is_writer:
+        write_variants(
+            records,
+            args.out,
+            contig_lengths=contig_lengths,
+            max_genotypes=args.max_genotypes,
+            vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+        )
+        _add_fns["clear_shards_after_write"](mh, args)
+        if args.truth:
+            _add_fns["print_concordance"](args, records)
     return 0

@@ -296,9 +296,9 @@ def _per_sample(source):
 
 
 def _sample_tiles(sample_sources, task_loci, device, tile_size, max_alleles,
-                  reference_genome):
+                  reference_genome, mesh=None):
     """(tile, sample_name, sample_source) for one partition task's loci."""
-    skip_nib = pack_skip_nibbles(device)
+    skip_nib = pack_skip_nibbles(device, mesh)
     for sample_name, sample_source in sorted(sample_sources.items()):
         for contig in task_loci.contigs:
             for tile in sample_source.iter_tiles(
@@ -322,12 +322,18 @@ def call_variants(
     tile_size: int = 0,
     max_alleles: int = 8,
     reference_genome=None,
+    mesh=None,
     *,
     device: torch.device,
 ) -> List[ThresholdCall]:
     """Call variants over a loci partitioning (shard -> loci).
 
-    reads: a list of MappedReads or a ReadSource (columnar or object)."""
+    reads: a list of MappedReads or a ReadSource (columnar or object).
+    mesh: a parallel.mesh.LociMesh — when given, the counting screens run
+    in groups of mesh.size tiles, each tile on its own shard (device and
+    CUDA stream), with full counts and no compaction, instead of one tile
+    after another on `device`. Output is identical by construction
+    (pinned by tests/test_torch_mesh.py)."""
     from guacamole_tpu_torch.callers.source import ReadSource
 
     source = (
@@ -340,31 +346,43 @@ def call_variants(
         for task in sorted(inverse):
             yield from _sample_tiles(
                 sample_sources, inverse[task], device, tile_size, max_alleles,
-                reference_genome,
+                reference_genome, mesh,
             )
 
     return _screen_and_classify(
-        tiles(), threshold_percent, emit_ref, emit_no_call, device
+        tiles(), threshold_percent, emit_ref, emit_no_call, device, mesh
     )
 
 
 def _screen_and_classify(
-    tile_items, threshold_percent, emit_ref, emit_no_call, device
+    tile_items, threshold_percent, emit_ref, emit_no_call, device, mesh=None
 ) -> List[ThresholdCall]:
     """Pipelined execution over (tile, sample_name, source) items: tiles
     pack on a background thread (the native packer releases the GIL), each
     packed tile's screen launches at once, and classification trails a
-    bounded window of screens in flight. Returns calls in deterministic
-    order."""
-    screen_iter = pipelined_screens(
-        prefetch_iter(tile_items, ahead=2),
-        tile_of=lambda item: item[0],
-        device=device,
-        threshold_percent=threshold_percent,
-        # Variant-only runs read counts at candidate loci alone: compact
-        # them on the device so each tile's fetch is one small array.
-        compact_cap=None if (emit_ref or emit_no_call) else COMPACT_CAP,
-    )
+    bounded window of screens in flight. With a mesh, groups of mesh.size
+    tiles screen at once, one tile per shard. Returns calls in
+    deterministic order."""
+    if mesh is not None:
+        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
+
+        screen_iter = mesh_csr_screens(
+            prefetch_iter(tile_items, ahead=2),
+            tile_of=lambda item: item[0],
+            mesh=mesh,
+            threshold_percent=threshold_percent,
+        )
+    else:
+        screen_iter = pipelined_screens(
+            prefetch_iter(tile_items, ahead=2),
+            tile_of=lambda item: item[0],
+            device=device,
+            threshold_percent=threshold_percent,
+            # Variant-only runs read counts at candidate loci alone:
+            # compact them on the device so each tile's fetch is one small
+            # array.
+            compact_cap=None if (emit_ref or emit_no_call) else COMPACT_CAP,
+        )
     calls: List[ThresholdCall] = []
     for (tile, name, src), pending in screen_iter:
         calls.extend(
@@ -394,6 +412,7 @@ def call_variants_streaming(
     tile_size: int = 0,
     max_alleles: int = 8,
     reference_genome=None,
+    mesh=None,
     *,
     device: torch.device,
 ) -> Optional[List[ThresholdCall]]:
@@ -415,10 +434,9 @@ def call_variants_streaming(
         for _task, task_loci, source in task_sources:
             yield from _sample_tiles(
                 _per_sample(source), task_loci, device, tile_size,
-                max_alleles,
-                reference_genome,
+                max_alleles, reference_genome, mesh,
             )
 
     return _screen_and_classify(
-        tiles(), threshold_percent, emit_ref, emit_no_call, device
+        tiles(), threshold_percent, emit_ref, emit_no_call, device, mesh
     )

@@ -433,15 +433,15 @@ def call_variants(
     """tumor_reads/normal_reads: MappedRead lists or ReadSources (may be
     None when task_sources is given).
 
-    mesh: screens spread over several devices are not yet ported; anything
-    but None is refused.
+    mesh: a parallel.mesh.LociMesh — when given, the tumor likelihood
+    screen runs in groups of mesh.size tiles, each tumor tile on its own
+    shard (device and CUDA stream); the exact f64 confirm is unchanged, so
+    output is identical (pinned by tests/test_torch_mesh.py).
     task_sources: an iterator of (task_loci, tumor_source, normal_source)
     — the streaming per-task .bai-pushdown input; when given, each task's
     tiles pack from its own pair of sources."""
     from guacamole_tpu_torch.callers.source import ReadSource
 
-    if mesh is not None:
-        raise NotImplementedError("--mesh on is not yet ported")
     calls: List[CalledSomaticAllele] = []
 
     if task_sources is None:
@@ -476,8 +476,8 @@ def call_variants(
     # Host screen (the CPU, or GUAC_HOST_SCREEN=1): the native packer
     # evaluates the tumor likelihood screen (alignment-included) inline
     # during the CSR single pass — no dense [L, D] tumor tiles, no device
-    # kernels. On a GPU the device screen path is used.
-    host_screen = screen_on_host(device)
+    # kernels. On a GPU (or with a mesh) the device screen path is used.
+    host_screen = mesh is None and screen_on_host(device)
     screen_fields = "screen" if host_screen else "likelihood_mapq"
 
     def tiles():
@@ -486,7 +486,11 @@ def call_variants(
                 for tile in tumor.iter_tiles(
                     contig,
                     task_loci.on_contig(contig),
-                    tile_size=tile_size,
+                    # mesh mode screens one whole tile per shard — keep
+                    # classic tiles there; otherwise auto.
+                    tile_size=(
+                        tile_size if mesh is None else (tile_size or 4096)
+                    ),
                     max_alleles=max_alleles,
                     reference_genome=reference_genome,
                     fields=screen_fields,
@@ -593,9 +597,20 @@ def call_variants(
     from guacamole_tpu_torch.ops.dispatch import prefetch_iter
 
     def screened():
-        # Per-tile async launches: each packed tile's screen launches at
-        # once and overlaps the packing of the next.
-        screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
+        if mesh is not None:
+            from guacamole_tpu_torch.parallel.mesh import mesh_ll_screens
+
+            screen_iter = mesh_ll_screens(
+                prefetch_iter(tiles(), ahead=2),
+                tile_of=lambda item: item[1],
+                mesh=mesh,
+                include_alignment=True,
+                min_mapq=min_alignment_quality,
+            )
+        else:
+            # Per-tile async launches: each packed tile's screen launches
+            # at once and overlaps the packing of the next.
+            screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
         for (contig, tile, tumor, normal), pending in screen_iter:
             if pending is None:
                 continue
@@ -731,7 +746,8 @@ def called_somatic_allele_to_vcf_record(call: CalledSomaticAllele) -> VcfRecord:
     )
 
 
-def _try_streaming(args, loci_builder, reference, filters, _add_fns, device):
+def _try_streaming(args, loci_builder, reference, mesh, filters, _add_fns,
+                   device):
     """Streaming somatic-standard (per-task .bai pushdown on BOTH
     samples). Returns (potential_calls, contig_lengths) or (None, None)
     when unavailable. The depth-balanced streaming partitioning weighs
@@ -761,6 +777,7 @@ def _try_streaming(args, loci_builder, reference, filters, _add_fns, device):
         max_read_depth=args.max_tumor_read_depth,
         tile_size=args.tile_size,
         reference_genome=reference,
+        mesh=mesh,
         device=device,
     )
     if potential is None:
@@ -823,12 +840,17 @@ def main(argv, _add_fns) -> int:
     )
     args = p.parse_args(argv)
 
-    # One device, one process: --mesh on and the multi-process flags are
-    # refused until the mesh and the multi-process runtime are ported.
-    _add_fns["refuse_unported"](args)
     device = _add_fns["resolve_device"](args)
     validate_output_path(args.out)
     loci_builder = resolve_loci_builder(args.loci, args.loci_from_file)
+    mh = _add_fns["bootstrap_multihost"](args)
+    loci_builder, empty_shard = _add_fns["multihost_shard_builder"](
+        mh, loci_builder, args.tumor_reads, args
+    )
+    if empty_shard:
+        from guacamole_tpu_torch.loci.lociset import parse_loci
+
+        loci_builder = parse_loci("")  # no loci: loads nothing, calls nothing
     reference = (
         ReferenceGenome.from_fasta(args.reference_fasta)
         if args.reference_fasta
@@ -840,11 +862,12 @@ def main(argv, _add_fns) -> int:
         passed_vendor_quality_checks=True,
         has_mdtag=True,
     )
+    mesh = _add_fns["resolve_mesh"](args)
     potential = None
     normal_lengths = None
-    if _add_fns["streaming_eligible"](args):
+    if not empty_shard and _add_fns["streaming_eligible"](args):
         potential, normal_lengths = _try_streaming(
-            args, loci_builder, reference, filters, _add_fns, device
+            args, loci_builder, reference, mesh, filters, _add_fns, device
         )
     if potential is None:
         tumor_source, tumor_lengths = load_read_source(
@@ -867,6 +890,14 @@ def main(argv, _add_fns) -> int:
             "Loaded %d tumor, %d normal reads."
             % (tumor_source.n, normal_source.n)
         )
+        if mh.active:
+            totals = _add_fns["multihost_counters"](
+                mh, tumor=tumor_source.n, normal=normal_source.n
+            )
+            progress(
+                "Global: %d tumor, %d normal reads across %d processes."
+                % (totals["tumor"], totals["normal"], mh.process_count)
+            )
         loci_set = loci_builder.result(normal_lengths)
         partitions = _add_fns["partition"](
             args, loci_set, tumor_source, normal_source
@@ -881,6 +912,7 @@ def main(argv, _add_fns) -> int:
             max_read_depth=args.max_tumor_read_depth,
             tile_size=args.tile_size,
             reference_genome=reference,
+            mesh=mesh,
             device=device,
         )
     progress("Computed %d potential genotypes." % len(potential))
@@ -920,12 +952,16 @@ def main(argv, _add_fns) -> int:
         debug=args.debug_genotype_filters,
     )
     progress("Computed %d genotypes after basic filtering." % len(filtered))
-    records = [called_somatic_allele_to_vcf_record(c) for c in filtered]
-    write_variants(
-        records,
-        args.out,
-        contig_lengths=normal_lengths,
-        max_genotypes=args.max_genotypes,
-        vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+    records = _add_fns["multihost_finalize"](
+        mh, [called_somatic_allele_to_vcf_record(c) for c in filtered], args
     )
+    if mh.is_writer:
+        write_variants(
+            records,
+            args.out,
+            contig_lengths=normal_lengths,
+            max_genotypes=args.max_genotypes,
+            vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+        )
+        _add_fns["clear_shards_after_write"](mh, args)
     return 0

@@ -3,8 +3,8 @@
 Port of guacamole_tpu/callers/structural_variant.py (cf. reference
 .../commands/StructuralVariantCaller.scala:27-289). It launches nothing on
 a device; the command still resolves one (--device), as every command of
-the port does. One process: the multi-process contig split and gathers of
-the original are not ported.
+the port does. Across processes each takes a contiguous block of contigs
+and the insert sizes and results are gathered, as in the original.
 1. Find read pairs with abnormally large insert sizes (median + 5*MAD).
 2. Build a compatibility graph of pairs explainable by one deletion.
 3. Greedily grow one clique per connected component.
@@ -397,10 +397,32 @@ def main(argv, _add_fns) -> int:
     p.add_argument("--filter-contig", default="")
     p.add_argument("--output", default="")
     args = p.parse_args(argv)
-    # One device, one process: --mesh on and the multi-process flags are
-    # refused until the mesh and the multi-process runtime are ported.
-    _add_fns["refuse_unported"](args)
     _add_fns["resolve_device"](args)
+
+    mh = _add_fns["bootstrap_multihost"](args)
+    my_contigs = None
+    filters = InputFilters.create(non_duplicate=True)
+    if mh.active:
+        # Contiguous contig blocks per process: each process loads only
+        # its contigs' byte ranges, and the rank-ordered gather of insert
+        # sizes reproduces the single-process (coordinate-sorted,
+        # contig-major) sampling order, so the global median+5*MAD
+        # threshold is identical.
+        from guacamole_tpu_torch.gio.load import header_contig_lengths
+        from guacamole_tpu_torch.loci.lociset import parse_loci
+
+        lengths = header_contig_lengths(args.reads)
+        names = list(lengths)
+        per = -(-len(names) // mh.process_count)
+        my_contigs = set(
+            names[mh.process_index * per : (mh.process_index + 1) * per]
+        )
+        expr = ",".join(
+            f"{c}:0-{lengths[c]}" for c in names if c in my_contigs
+        )
+        filters = InputFilters.create(
+            non_duplicate=True, overlaps_loci=parse_loci(expr)
+        )
 
     # Columnar fast path: the native decoders carry mate columns, so the
     # stage-1 discordant-pair scan (same-contig / opposite-strand /
@@ -425,10 +447,18 @@ def main(argv, _add_fns) -> int:
                 else None
             )
         )
-        fast = exceptional_from_columnar(cols, args.filter_contig)
+        fast = exceptional_from_columnar(
+            cols, args.filter_contig, my_contigs
+        )
     if fast is not None:
         local_sizes, make_exceptional = fast
-        stats = median_stats(local_sizes[:100000])
+        if mh.active:
+            from guacamole_tpu_torch.parallel.multihost import gather_objects
+
+            all_sizes = gather_objects(mh, [int(s) for s in local_sizes])
+            stats = median_stats(all_sizes[:100000])
+        else:
+            stats = median_stats(local_sizes[:100000])
         max_normal = int(stats.median + 5 * stats.mad)
         exceptional = make_exceptional(max_normal)
         by_contig: Dict[str, List[PairedMappedRead]] = {}
@@ -440,9 +470,7 @@ def main(argv, _add_fns) -> int:
             cliques = find_cliques(graph, max_normal)
             results[contig] = [c.span(graph) for c in cliques]
     else:
-        read_set = load_read_set(
-            args.reads, InputFilters.create(non_duplicate=True)
-        )
+        read_set = load_read_set(args.reads, filters)
         pairs = [
             pm
             for pm in (
@@ -452,6 +480,10 @@ def main(argv, _add_fns) -> int:
             )
             if pm is not None
         ]
+        if my_contigs is not None:
+            pairs = [
+                pm for pm in pairs if pm.read.reference_contig in my_contigs
+            ]
         if args.filter_contig:
             pairs = [
                 pm
@@ -459,12 +491,31 @@ def main(argv, _add_fns) -> int:
                 if pm.read.reference_contig == args.filter_contig
                 or pm.mate.reference_contig == args.filter_contig
             ]
-        max_normal, results = call_structural_variants(pairs)
+        if mh.active:
+            from guacamole_tpu_torch.parallel.multihost import gather_objects
+
+            local_sizes = [
+                oriented_insert_size(p) for p in pairs_in_range(pairs)
+            ]
+            all_sizes = gather_objects(mh, local_sizes)
+            stats = median_stats(all_sizes[:100000])
+            max_normal = int(stats.median + 5 * stats.mad)
+            _, results = call_structural_variants(
+                pairs, max_normal_insert_size=max_normal
+            )
+        else:
+            max_normal, results = call_structural_variants(pairs)
     progress(f"max normal insert size: {max_normal}")
     lines = [
         f"({contig},{[str(r) for r in ranges]})"
         for contig, ranges in results.items()
     ]
+    if mh.active:
+        from guacamole_tpu_torch.parallel.multihost import gather_objects
+
+        lines = sorted(gather_objects(mh, lines))
+        if not mh.is_writer:
+            return 0
     if args.output:
         with open(args.output, "w") as out:
             out.write("\n".join(lines) + ("\n" if lines else ""))

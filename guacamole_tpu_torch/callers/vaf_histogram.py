@@ -6,8 +6,9 @@ Port of guacamole_tpu/callers/vaf_histogram.py (cf. reference
 form of the counting screen (csr_count_screen on a GPU: no threshold, no
 compaction); the optional Gaussian mixture clustering runs as a
 vectorized EM in torch on the chosen device (replacing Spark MLlib's
-GaussianMixture). One device, one process: the mesh and the multi-process
-branches of the original are not ported.
+GaussianMixture). The screens run on one device or over a mesh; across
+processes each takes a loci shard and process 0 writes the merged
+histogram.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def variant_loci_from_reads(
     print_stats: bool = False,
     sample_percent: int = 100,
     tile_size: int = 0,
+    mesh=None,
     *,
     device: torch.device,
 ) -> List[VariantLocus]:
@@ -47,7 +49,9 @@ def variant_loci_from_reads(
     elements whose allele equals (ref_base, ref_base).
 
     reads: a list of MappedReads or a ReadSource. Every tile takes the
-    full-count screen on `device`."""
+    full-count screen on `device`.
+    mesh: a parallel.mesh.LociMesh — when given, the counting screens run
+    in groups of mesh.size tiles, one tile per shard (identical counts)."""
     from guacamole_tpu_torch.callers.source import ReadSource
 
     source = (
@@ -66,6 +70,7 @@ def variant_loci_from_reads(
         print_stats=print_stats,
         sample_percent=sample_percent,
         tile_size=tile_size,
+        mesh=mesh,
         device=device,
     )
 
@@ -103,6 +108,7 @@ def _variant_loci_over_tasks(
     print_stats: bool = False,
     sample_percent: int = 100,
     tile_size: int = 0,
+    mesh=None,
     *,
     device: torch.device,
 ) -> List[VariantLocus]:
@@ -123,14 +129,21 @@ def _variant_loci_over_tasks(
                     task_loci.on_contig(contig),
                     tile_size=tile_size,
                     fields="screen",
-                    skip_nibbles=pack_skip_nibbles(device),
+                    skip_nibbles=pack_skip_nibbles(device, mesh),
                 ):
                     yield contig, tile, source
 
-    screen_iter = pipelined_screens(
-        prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[1],
-        device=device,
-    )
+    if mesh is not None:
+        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
+
+        screen_iter = mesh_csr_screens(
+            tiles(), tile_of=lambda item: item[1], mesh=mesh
+        )
+    else:
+        screen_iter = pipelined_screens(
+            prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[1],
+            device=device,
+        )
     min_vaf = min_variant_allele_frequency / 100.0
     for (contig, tile, source), pending in screen_iter:
         stats = pending.result() if pending is not None else None
@@ -328,22 +341,33 @@ def main(argv, _add_fns) -> int:
     p.add_argument("--sample-percent", type=int, default=25)
     p.add_argument("bams", nargs="+")
     args = p.parse_args(argv)
-    # One device, one process: --mesh on and the multi-process flags are
-    # refused until the mesh and the multi-process runtime are ported.
-    _add_fns["refuse_unported"](args)
     device = _add_fns["resolve_device"](args)
 
     loci_builder = resolve_loci_builder(args.loci, args.loci_from_file)
+    mh = _add_fns["bootstrap_multihost"](args)
     # Bug-for-bug parity: the reference builds these filters and then
     # loads every ReadSet with InputFilters.empty anyway — the filters
     # variable is dead code there (VAFHistogram.scala:91-103). Reads are
-    # therefore NOT filtered here either.
+    # therefore NOT filtered here either (single-process; a multi-process
+    # shard must restrict loading to its own loci or sharding is moot).
+    load_filters = InputFilters.empty
+    if mh.active:
+        loci_builder, empty_shard = _add_fns["multihost_shard_builder"](
+            mh, loci_builder, args.bams[0], args
+        )
+        if empty_shard:
+            from guacamole_tpu_torch.loci.lociset import parse_loci
+
+            loci_builder = parse_loci("")
+        load_filters = InputFilters.create(overlaps_loci=loci_builder)
+    mesh = _add_fns["resolve_mesh"](args)
     vl_kwargs = dict(
         min_read_depth=args.min_read_depth,
         min_variant_allele_frequency=args.min_vaf,
-        print_stats=args.print_stats,
+        print_stats=args.print_stats and not mh.active,
         sample_percent=args.sample_percent,
         tile_size=args.tile_size,
+        mesh=mesh,
         device=device,
     )
     # Streaming path: partition once from the first BAM's index (the
@@ -384,7 +408,7 @@ def main(argv, _add_fns) -> int:
         sources = [
             load_read_source(
                 bam,
-                InputFilters.empty,
+                load_filters,
                 recompute_mdtags=args.recompute_md_tags,
                 use_native=args.bam_reader_api in ("best", "native"),
             )
@@ -405,6 +429,28 @@ def main(argv, _add_fns) -> int:
         sample_names = [
             (src.sample_names() or ["default"])[0] for src, _ in sources
         ]
+    if mh.active:
+        from guacamole_tpu_torch.parallel.multihost import gather_objects
+
+        # Rank-ordered concat per bam: shards are contiguous ascending
+        # loci, so the merged per-bam lists equal a single-process run's.
+        gathered = gather_objects(mh, [all_variant_loci])
+        all_variant_loci = [
+            [
+                v
+                for proc_lists in gathered
+                for v in proc_lists[b]
+            ]
+            for b in range(len(args.bams))
+        ]
+        if args.print_stats and mh.is_writer:
+            for sample, variant_loci in zip(sample_names, all_variant_loci):
+                if variant_loci:
+                    print_vaf_stats(
+                        sample, variant_loci, args.sample_percent
+                    )
+        if not mh.is_writer:
+            return 0
     bin_size = 100 // args.bins
     lines: List[str] = []
     for bam, sample, variant_loci in zip(

@@ -5,9 +5,9 @@ Port of guacamole_tpu/callers/variant_support.py (cf. reference
 .../commands/VariantSupport.scala:31-119). Builds a loci set from a VCF's
 variant positions, packs sparse tiles at those loci for each BAM, and
 reads allele counts off the full-count form of the counting screen
-(csr_count_screen on a GPU: no threshold, no compaction). One device, one
-process: the mesh and the multi-process branches of the original are not
-ported.
+(csr_count_screen on a GPU: no threshold, no compaction), on one device
+or over a mesh; across processes each takes a contiguous shard of the
+sites and process 0 writes the gathered lines.
 """
 
 from __future__ import annotations
@@ -51,12 +51,15 @@ def loci_from_variants(vcf_path: str) -> LociSet:
 
 
 def pileup_allele_counts(
-    reads, loci: LociSet, tile_size: int = 4096, *, device: torch.device
+    reads, loci: LociSet, tile_size: int = 4096, mesh=None, *,
+    device: torch.device,
 ) -> List[AlleleCount]:
     """Per-(sample, locus, allele) read counts at the given loci.
 
     reads: a list of MappedReads or a ReadSource. Every tile takes the
-    full-count screen on `device` (no threshold, no compaction)."""
+    full-count screen on `device` (no threshold, no compaction).
+    mesh: a parallel.mesh.LociMesh — when given, the counting screens run
+    in groups of mesh.size tiles, one tile per shard (identical counts)."""
     from guacamole_tpu_torch.callers.source import ReadSource
 
     source = (
@@ -73,13 +76,20 @@ def pileup_allele_counts(
             for tile in source.iter_tiles(
                 contig, loci.on_contig(contig), tile_size=tile_size,
                 fields="screen",
-                skip_nibbles=pack_skip_nibbles(device),
+                skip_nibbles=pack_skip_nibbles(device, mesh),
             ):
                 yield contig, tile
 
-    screen_iter = pipelined_screens(
-        tiles(), tile_of=lambda item: item[1], device=device
-    )
+    if mesh is not None:
+        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
+
+        screen_iter = mesh_csr_screens(
+            tiles(), tile_of=lambda item: item[1], mesh=mesh
+        )
+    else:
+        screen_iter = pipelined_screens(
+            tiles(), tile_of=lambda item: item[1], device=device
+        )
     for (contig, tile), pending in screen_iter:
         if pending is not None:
             stats = pending.result()
@@ -200,29 +210,57 @@ def main(argv, _add_fns) -> int:
     p.add_argument("--output", "-o", required=True)
     p.add_argument("bams", nargs="+")
     args = p.parse_args(argv)
-    # One device, one process: --mesh on and the multi-process flags are
-    # refused until the mesh and the multi-process runtime are ported.
-    _add_fns["refuse_unported"](args)
     device = _add_fns["resolve_device"](args)
 
+    mh = _add_fns["bootstrap_multihost"](args)
     loci = loci_from_variants(args.variants)
     progress(f"Variant sites cover {loci.count} loci.")
+    lines: List[str]
+    load_filters = InputFilters.empty
+    if mh.active:
+        # Each process takes a contiguous shard of the variant sites and
+        # loads only reads overlapping it (.bai pushdown via the loci
+        # filter); the gathered lines reproduce the single-process order.
+        from guacamole_tpu_torch.loci.lociset import parse_loci
+        from guacamole_tpu_torch.parallel.multihost import (
+            shard_loci_expression,
+        )
+
+        expr = shard_loci_expression(mh, loci)
+        maker = parse_loci(expr or "")
+        loci = maker.result()
+        if expr:
+            load_filters = InputFilters.create(overlaps_loci=maker)
+    mesh = _add_fns["resolve_mesh"](args)
     per_bam: List[List[str]] = []
     for bam in args.bams:
         # contigLengthsFromDictionary is hardcoded false in the reference
         # (VariantSupport.scala:77) and the lengths are unused here.
         source, _ = load_read_source(
             bam,
-            InputFilters.empty,
+            load_filters,
             contig_lengths_from_dictionary=False,
             recompute_mdtags=args.recompute_md_tags,
             use_native=args.bam_reader_api in ("best", "native"),
         )
         counts = pileup_allele_counts(
-            source, loci, tile_size=args.tile_size, device=device
+            source, loci, tile_size=args.tile_size, mesh=mesh, device=device
         )
         per_bam.append([str(c) for c in counts])
-    lines = [line for bam_lines in per_bam for line in bam_lines]
+    if mh.active:
+        from guacamole_tpu_torch.parallel.multihost import gather_objects
+
+        # Rank-ordered concat per bam: shards are contiguous ascending
+        # loci, so the merged order equals the single-process order.
+        gathered = gather_objects(mh, [per_bam])
+        lines = []
+        for b in range(len(args.bams)):
+            for proc_per_bam in gathered:
+                lines.extend(proc_per_bam[b])
+        if not mh.is_writer:
+            return 0
+    else:
+        lines = [line for bam_lines in per_bam for line in bam_lines]
     with open(args.output, "w") as out:
         out.write("\n".join(lines) + ("\n" if lines else ""))
     progress(f"Wrote {len(lines)} allele counts to {args.output}.")

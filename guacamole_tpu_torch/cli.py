@@ -3,10 +3,10 @@
 Ports the seven commands of guacamole_tpu/cli.py (germline-threshold,
 germline-standard, somatic-standard, variant-support, vaf-histogram,
 structural-variant and index) onto the PyTorch device layer, with the same
-flags and output. The device mesh and the multi-process runtime are not
-ported yet: their flags are accepted and refused with a one-line error.
-Every command that touches a device runs on the GPU unless --device cpu
-asks for the CPU.
+flags and output, the device mesh (--mesh) and the multi-process runtime
+(--coordinator / --num-processes / --process-id, --recover, --timeout)
+included. Every command that touches a device runs on the GPU unless
+--device cpu asks for the CPU.
 
     python -m guacamole_tpu_torch.cli germline-threshold --reads x.bam --out x.vcf
 """
@@ -18,8 +18,9 @@ import os
 import sys
 from typing import List, Optional
 
-from guacamole_tpu_torch.utils.progress import DelayedMessages, progress
 from guacamole_tpu_torch import __version__
+from guacamole_tpu_torch.parallel.multihost import DEFAULT_DCN_TIMEOUT_S
+from guacamole_tpu_torch.utils.progress import DelayedMessages, progress
 
 
 def _add_base_args(p: argparse.ArgumentParser) -> None:
@@ -153,19 +154,55 @@ def _add_distributed_args(p: argparse.ArgumentParser) -> None:
         "--mesh",
         default="auto",
         choices=["auto", "on", "off"],
-        help="'auto' and 'off' screen on one device; 'on' (screens spread "
-        "over all devices) is not yet ported.",
+        help="Spread device screens over all local devices: groups of as "
+        "many tiles as devices, one tile per device, each on its own CUDA "
+        "stream. 'auto' enables it when more than one CUDA device is "
+        "present; 'on' forces it (one device is a mesh of one; with "
+        "--device cpu a mesh of the CPU); 'off' screens tiles one after "
+        "another on one device.",
     )
-    # Multi-process runs are not yet ported; the flags are accepted so a
-    # run that asks for one fails with a clear error instead of a usage
-    # message.
-    p.add_argument("--coordinator", default="", help=argparse.SUPPRESS)
-    p.add_argument("--num-processes", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--process-id", type=int, default=-1, help=argparse.SUPPRESS)
-    p.add_argument("--recover", action="store_true", help=argparse.SUPPRESS)
+    # Multi-process runtime (the reference's program+executors across
+    # machines, Command.scala:51-62 / README.md:66-88). A cluster launcher
+    # starts one process per host with identical flags except --process-id
+    # (or the GUAC_COORDINATOR / GUAC_NUM_PROCESSES / GUAC_PROCESS_ID env
+    # vars).
     p.add_argument(
-        "--timeout", type=float, default=-1.0, dest="dcn_timeout",
-        help=argparse.SUPPRESS,
+        "--coordinator",
+        default="",
+        help="host:port of process 0 for multi-process runs (the gloo "
+        "rendezvous that process 0 serves)",
+    )
+    p.add_argument(
+        "--num-processes",
+        type=int,
+        default=0,
+        help="Total processes in a multi-process run (0/1 = single process)",
+    )
+    p.add_argument(
+        "--process-id",
+        type=int,
+        default=-1,
+        help="This process's index in a multi-process run",
+    )
+    p.add_argument(
+        "--recover",
+        action="store_true",
+        help="Resume a failed multi-process run from its completed "
+        "per-shard results (<out>.shards/): re-execute only the missing "
+        "shards' loci in this single process, merge, and write output "
+        "identical to an undisturbed run. The task-retry analog of the "
+        "reference's Spark lineage recovery (README.md:66-88).",
+    )
+    p.add_argument(
+        "--timeout",
+        type=float,
+        default=-1.0,
+        dest="dcn_timeout",
+        help="Abort (exit 42, one-line error) if any cross-process gloo "
+        "collective stalls longer than this many seconds or fails — a dead "
+        "peer then fails the job promptly instead of hanging the "
+        "survivors. Default %d; 0 disables the watchdog. (Also "
+        "GUAC_TIMEOUT.)" % int(DEFAULT_DCN_TIMEOUT_S),
     )
 
 
@@ -185,23 +222,171 @@ def _resolve_device(args):
     return device(args.device)
 
 
-def _refuse_unported(args) -> None:
-    """One device, one process: refuse what would need the mesh or the
-    multi-process runtime, which are not yet ported."""
-    if args.mesh == "on":
-        raise NotImplementedError("--mesh on is not yet ported")
-    multi = (
-        args.coordinator
-        or args.num_processes > 1
-        or args.process_id >= 0
-        or args.recover
-        or int(os.environ.get("GUAC_NUM_PROCESSES", "0") or 0) > 1
+def _resolve_mesh(args):
+    """The device mesh for this run, or None for sequential screening.
+
+    'auto' uses the mesh exactly when more than one CUDA device is
+    attached, and never with --device cpu; 'on' builds it over every CUDA
+    device (one is a mesh of one), or over the CPU with --device cpu. In a
+    multi-process run the mesh spans this process's LOCAL devices: the
+    cross-process axis is the per-process loci shard, merged over gloo."""
+    if getattr(args, "mesh", "off") == "off":
+        return None
+    import torch
+
+    if args.device == "cpu":
+        if args.mesh == "auto":
+            return None
+        devices = [torch.device("cpu")]
+    else:
+        _resolve_device(args)  # one line without CUDA: no CPU fallback
+        n = torch.cuda.device_count()
+        if args.mesh == "auto" and n < 2:
+            return None
+        devices = [torch.device("cuda", i) for i in range(n)]
+    from guacamole_tpu_torch.parallel.mesh import loci_mesh
+
+    return loci_mesh(devices)
+
+
+def _bootstrap_multihost(args):
+    """Join the multi-process runtime (no-op single-process)."""
+    from guacamole_tpu_torch.parallel.multihost import bootstrap
+
+    return bootstrap(
+        getattr(args, "coordinator", ""),
+        getattr(args, "num_processes", 0),
+        getattr(args, "process_id", -1),
+        getattr(args, "dcn_timeout", -1.0),
     )
-    if multi:
-        raise NotImplementedError(
-            "multi-process runs (--coordinator/--num-processes/--process-id"
-            "/--recover) are not yet ported"
+
+
+def _multihost_shard_builder(mh, loci_builder, reads_path, args=None):
+    """Restrict the loci to this process's shard (each process then
+    .bai-reads only its own shard's byte ranges). Returns (the restricted
+    loci, or None, and shard_is_empty).
+
+    With --recover (single process): load the failed run's completed
+    shard records from <out>.shards/, stash them for _multihost_finalize,
+    and restrict the loci to the MISSING shards' only."""
+    from guacamole_tpu_torch.gio.load import header_contig_lengths
+    from guacamole_tpu_torch.loci.lociset import parse_loci
+
+    if (
+        args is not None
+        and getattr(args, "recover", False)
+        and not mh.active
+    ):
+        from guacamole_tpu_torch.parallel.multihost import (
+            load_shards,
+            missing_shards_expression,
         )
+
+        out = getattr(args, "out", "")
+        count, have = load_shards(out)
+        if count == 0:
+            raise SystemExit(
+                f"guacamole-torch: --recover found no shard files at "
+                f"{out}.shards/ — nothing to resume"
+            )
+        lengths = header_contig_lengths(reads_path)
+        loci_set = loci_builder.result(lengths)
+        expr = missing_shards_expression(loci_set, count, have)
+        args._recovered_records = [
+            r for idx in sorted(have) for r in have[idx]
+        ]
+        progress(
+            "Recovering: %d/%d shards on disk; re-executing %s"
+            % (len(have), count, expr or "(nothing — all present)")
+        )
+        if not expr:
+            return None, True
+        return parse_loci(expr), False
+
+    if not mh.active:
+        return loci_builder, False
+    from guacamole_tpu_torch.parallel.multihost import shard_loci_expression
+
+    lengths = header_contig_lengths(reads_path)
+    loci_set = loci_builder.result(lengths)
+    expr = shard_loci_expression(mh, loci_set)
+    progress(
+        "Process %d/%d loci shard: %s"
+        % (mh.process_index, mh.process_count, expr or "(empty)")
+    )
+    if expr is None:
+        return None, True
+    return parse_loci(expr), False
+
+
+def _multihost_counters(mh, **counters):
+    """Sum named counters across processes over gloo (the
+    Spark-accumulator analog); identity in single-process runs."""
+    from guacamole_tpu_torch.parallel.multihost import allreduce_counters
+
+    return allreduce_counters(mh, counters)
+
+
+def _multihost_finalize(mh, records, args=None):
+    """Merge per-process VCF records over gloo; every process receives the
+    full set (progress counters stay truthful everywhere) but only
+    process 0 should write (mh.is_writer).
+
+    Multi-process: each process persists its shard to <out>.shards/
+    BEFORE the merge, so completed work survives a peer's death and
+    --recover can resume (the Spark task-retry analog); shard files are
+    cleaned up once the merge succeeds. --recover (single process):
+    merge this run's recomputed records with the loaded shards."""
+    out = getattr(args, "out", "") if args is not None else ""
+    if mh.active:
+        from guacamole_tpu_torch.parallel.multihost import (
+            gather_objects,
+            persist_shard,
+        )
+
+        # Test-only fault injection: simulate this process dying mid-run
+        # (before it persists or merges anything), so the recovery test
+        # exercises a genuinely lost shard.
+        die = os.environ.get("GUAC_TEST_EXIT_BEFORE_MERGE", "")
+        if die != "" and int(die) == mh.process_index:
+            sys.stderr.write(
+                "guacamole-torch: GUAC_TEST_EXIT_BEFORE_MERGE fault hook — "
+                "exiting before shard persist/merge\n"
+            )
+            sys.stderr.flush()
+            os._exit(43)
+        if out:
+            persist_shard(
+                out, mh.process_index, mh.process_count, records
+            )
+        merged = gather_objects(mh, records)
+        merged.sort(
+            key=lambda r: (r.contig, r.start, r.sample_name, r.ref, r.alt)
+        )
+        return merged
+    recovered = (
+        getattr(args, "_recovered_records", None)
+        if args is not None
+        else None
+    )
+    if recovered is not None:
+        merged = list(records) + list(recovered)
+        merged.sort(
+            key=lambda r: (r.contig, r.start, r.sample_name, r.ref, r.alt)
+        )
+        return merged
+    return records
+
+
+def _clear_shards_after_write(mh, args) -> None:
+    """Remove a run's crash-recovery shard files — called ONLY after the
+    writer's output has been durably written (clearing any earlier would
+    reopen the window the persist-before-merge design closes)."""
+    out = getattr(args, "out", "")
+    if out and (mh.active or getattr(args, "recover", False)):
+        from guacamole_tpu_torch.parallel.multihost import clear_shards
+
+        clear_shards(out)
 
 
 def _default_parallelism() -> int:
@@ -268,7 +453,8 @@ def _streaming_eligible(args) -> bool:
     )
 
 
-def _try_streaming_threshold(args, loci_builder, reference, device):
+def _try_streaming_threshold(args, loci_builder, reference, device,
+                             mesh=None):
     """Streaming germline-threshold (per-task BAM pushdown); None when the
     streaming path is unavailable."""
     from guacamole_tpu_torch.reads.read import InputFilters
@@ -301,6 +487,7 @@ def _try_streaming_threshold(args, loci_builder, reference, device):
         emit_no_call=args.emit_no_call,
         tile_size=args.tile_size,
         reference_genome=reference,
+        mesh=mesh,
         device=device,
     )
 
@@ -332,7 +519,6 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     p.add_argument("--reference-fasta", default=None, help="Reference FASTA")
     _add_concordance_args(p)
     args = p.parse_args(argv)
-    _refuse_unported(args)
 
     from guacamole_tpu_torch.callers.common import (
         load_read_source,
@@ -347,19 +533,31 @@ def cmd_germline_threshold(argv: List[str]) -> int:
     device = _resolve_device(args)
     validate_output_path(args.out)
     loci_builder = resolve_loci_builder(args.loci, args.loci_from_file)
+    mh = _bootstrap_multihost(args)
+    loci_builder, empty_shard = _multihost_shard_builder(
+        mh, loci_builder, args.reads, args
+    )
     reference = (
         ReferenceGenome.from_fasta(args.reference_fasta)
         if args.reference_fasta
         else None
     )
+    mesh = _resolve_mesh(args)
     calls = None
     contig_lengths = None
-    if _streaming_eligible(args):
+    if empty_shard:
+        from guacamole_tpu_torch.gio.load import header_contig_lengths
+
+        calls = []
+        contig_lengths = header_contig_lengths(args.reads)
+    elif _streaming_eligible(args):
         # Partitioning needs only the header's contig lengths (uniform) or
         # the BAM index's byte-density histogram (depth-balanced), so each
         # task can decode just its own BAM byte ranges (.bai pushdown),
         # overlapping the next task's IO with device screens.
-        calls = _try_streaming_threshold(args, loci_builder, reference, device)
+        calls = _try_streaming_threshold(
+            args, loci_builder, reference, device, mesh
+        )
         if calls is not None:
             from guacamole_tpu_torch.gio.bam import BamFile
 
@@ -389,19 +587,29 @@ def cmd_germline_threshold(argv: List[str]) -> int:
             emit_no_call=args.emit_no_call,
             tile_size=args.tile_size,
             reference_genome=reference,
+            mesh=mesh,
             device=device,
         )
     progress("Called %d genotypes." % len(calls))
-    records = [c.to_vcf_record() for c in calls]
-    write_variants(
-        records,
-        args.out,
-        contig_lengths=contig_lengths,
-        max_genotypes=args.max_genotypes,
-        vcf_header_compat=args.vcf_header_compat,
+    records = _multihost_finalize(
+        mh, [c.to_vcf_record() for c in calls], args
     )
-    if args.truth:
-        _print_concordance(args, records)
+    if mh.active:
+        progress(
+            "Merged %d genotypes across %d processes."
+            % (len(records), mh.process_count)
+        )
+    if mh.is_writer:
+        write_variants(
+            records,
+            args.out,
+            contig_lengths=contig_lengths,
+            max_genotypes=args.max_genotypes,
+            vcf_header_compat=args.vcf_header_compat,
+        )
+        _clear_shards_after_write(mh, args)
+        if args.truth:
+            _print_concordance(args, records)
     DelayedMessages.default.print()
     return 0
 
@@ -418,8 +626,13 @@ ARG_HELPERS = {
     "concordance": _add_concordance_args,
     "read_config": _add_read_loading_args,
     "default_parallelism": _default_parallelism,
-    "refuse_unported": _refuse_unported,
     "resolve_device": _resolve_device,
+    "resolve_mesh": _resolve_mesh,
+    "bootstrap_multihost": _bootstrap_multihost,
+    "multihost_shard_builder": _multihost_shard_builder,
+    "multihost_counters": _multihost_counters,
+    "multihost_finalize": _multihost_finalize,
+    "clear_shards_after_write": _clear_shards_after_write,
     "partition": _partition,
     "streaming_partitions": _streaming_partitions,
     "streaming_eligible": _streaming_eligible,
@@ -513,6 +726,15 @@ COMMANDS = {
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from guacamole_tpu_torch.parallel.multihost import shutdown
+
+    try:
+        return _main(argv)
+    finally:
+        shutdown()  # leave the process group of a multi-process run
+
+
+def _main(argv: Optional[List[str]]) -> int:
     from guacamole_tpu_torch.platform import tune_allocator
 
     tune_allocator()

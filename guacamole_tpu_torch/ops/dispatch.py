@@ -126,12 +126,12 @@ def screen_on_host(device: torch.device) -> bool:
     return device.type != "cuda"
 
 
-def pack_skip_nibbles(device: torch.device) -> bool:
+def pack_skip_nibbles(device: torch.device, mesh=None) -> bool:
     """True when screen tiles may skip the CSR nibble blob at pack time:
-    the counting screens will run from the packer's counts on the host, so
-    nothing reads csr_nib. False whenever device screens run, or no
-    kernel would have a blob to count."""
-    return screen_on_host(device)
+    no mesh, and the counting screens will run from the packer's counts on
+    the host, so nothing reads csr_nib. False whenever device screens run
+    (a mesh always runs them), or no kernel would have a blob to count."""
+    return mesh is None and screen_on_host(device)
 
 
 def host_counts_candidates(counts, is_variant, threshold_percent):

@@ -5,7 +5,9 @@ A machine with a GPU need not have JAX installed, and the port stands
 alone: it keeps its own copies of the host layers. A subprocess with both
 `jax` and `guacamole_tpu` blocked imports every port module and runs each
 of the port's caller commands (variant-support, vaf-histogram and
-structural-variant too), and its forward step, to the end on the CPU.
+structural-variant too), `--mesh on`, its forward step and its
+multi-device dry run to the end on the CPU; two such subprocesses run one
+command as a two-process group over gloo.
 """
 
 import os
@@ -155,16 +157,81 @@ def test_port_runs_its_forward_step_with_jax_blocked():
     )
 
 
+def test_port_runs_mesh_on_with_jax_blocked(tmp_path, fixture_files):
+    threshold, standard = str(tmp_path / "t.vcf"), str(tmp_path / "s.vcf")
+    _run_code_blocked(_main_blocked(
+        ["germline-threshold", "--reads", fixture_files["germline_bam"],
+         "--threshold", "25", "--mesh", "on", "--out", threshold],
+        ["germline-standard", "--reads", fixture_files["germline_bam"],
+         "--mesh", "on", "--out", standard],
+    ))
+    assert len([ln for ln in _lines(threshold) if ln[:1] != "#"]) >= 100
+    assert len([ln for ln in _lines(standard) if ln[:1] != "#"]) >= 1000
+
+
+def test_port_runs_dryrun_multichip_with_jax_blocked():
+    _run_code_blocked(
+        "from guacamole_tpu_torch.entry import dryrun_multichip\n"
+        "line = dryrun_multichip(2, device='cpu')\n"
+        "assert line.startswith('dryrun_multichip(2): OK'), line\n"
+        "rc = 0\n"
+    )
+
+
+def test_port_runs_two_processes_with_jax_blocked(tmp_path, fixture_bam):
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    out = str(tmp_path / "multi.vcf")
+    argv = ["germline-threshold", "--reads", fixture_bam, "--threshold",
+            "25", "--out", out, "--coordinator", coordinator,
+            "--num-processes", "2", "--timeout", "30"]
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", _blocked_code(_main_blocked(
+                [*argv, "--process-id", str(pid)]))],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+            text=True,
+        )
+        for pid in range(2)
+    ]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:] for e in errs]
+    assert len([ln for ln in _lines(out) if ln[:1] != "#"]) >= 100
+
+
 def _run_code_blocked(body):
     """Run `body` (which sets rc) in a subprocess with jax and the JAX
     package blocked, after importing every module of the port."""
+    r = subprocess.run(
+        [sys.executable, "-c", _blocked_code(body)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def _blocked_code(body):
+    """The code _run_code_blocked runs: block jax and the JAX package,
+    import every module of the port, run `body`, check that nothing of
+    either was loaded and exit with rc."""
     modules = port_modules()
     assert "guacamole_tpu_torch.cli" in modules
     assert "guacamole_tpu_torch.callers.somatic_standard" in modules
     assert "guacamole_tpu_torch.callers.vaf_histogram" in modules
     assert "guacamole_tpu_torch.assembly.debruijn" in modules
     assert "guacamole_tpu_torch.entry" in modules
-    code = (
+    assert "guacamole_tpu_torch.parallel.mesh" in modules
+    assert "guacamole_tpu_torch.parallel.multihost" in modules
+    assert "guacamole_tpu_torch.callers.distributed" in modules
+    return (
         "import importlib, sys\n"
         "sys.modules['jax'] = None  # any 'import jax' now raises\n"
         "sys.modules['guacamole_tpu'] = None\n"
@@ -179,11 +246,6 @@ def _run_code_blocked(body):
         "assert not leaked, leaked\n"
         "sys.exit(rc)\n"
     )
-    r = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=600,
-    )
-    assert r.returncode == 0, r.stderr[-3000:]
 
 
 def _run_blocked(tmp_path, fixture_bam, command, extra, min_records):

@@ -174,6 +174,8 @@ def test_screen_policy(monkeypatch):
     assert not dispatch.pack_skip_nibbles(cuda)
     monkeypatch.setenv("GUAC_HOST_SCREEN", "1")
     assert dispatch.screen_on_host(cuda) and dispatch.pack_skip_nibbles(cuda)
+    # A mesh always runs device screens, so its tiles keep their blob.
+    assert not dispatch.pack_skip_nibbles(CPU, mesh=object())
     monkeypatch.setenv("GUAC_HOST_SCREEN", "0")
     assert not dispatch.screen_on_host(CPU)
     assert not dispatch.pack_skip_nibbles(CPU)

@@ -112,8 +112,9 @@ def test_device_screens_run_the_likelihood_screen(
 @pytest.mark.parametrize(
     "extra, message",
     [
-        (["--device", "cpu", "--mesh", "on"], "not yet ported"),
-        (["--device", "cpu", "--num-processes", "2"], "not yet ported"),
+        # --mesh on without a CUDA device: no fallback to a CPU mesh.
+        (["--mesh", "on"], "--device cpu"),
+        (["--device", "cpu", "--num-processes", "2"], "--coordinator"),
         ([], "--device cpu"),
         (["--device", "cuda"], "--device cpu"),
     ],
@@ -121,9 +122,7 @@ def test_device_screens_run_the_likelihood_screen(
 def test_refusals_fail_with_one_line(
     tmp_path, fixture_bam, capsys, extra, message
 ):
-    if "--mesh" not in extra and "--num-processes" not in extra and (
-        torch.cuda.is_available()
-    ):
+    if "--num-processes" not in extra and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     out = str(tmp_path / "x.vcf")
     rc = port_cli.main(
@@ -174,8 +173,11 @@ def test_python_packed_tiles_take_the_likelihood_screen(
 
 
 def test_mesh_argument_is_refused():
+    """A mesh is taken now (tests/test_torch_mesh.py holds its calls to
+    the JAX package's); what is refused is a mesh with no device."""
     from guacamole_tpu_torch.callers import germline_standard as port_gs
+    from guacamole_tpu_torch.parallel.mesh import loci_mesh
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="at least one device"):
         port_gs.call_variants(
-            [], None, mesh=object(), device=torch.device("cpu"))
+            [], None, mesh=loci_mesh([]), device=torch.device("cpu"))

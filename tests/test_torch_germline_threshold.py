@@ -137,13 +137,28 @@ def test_index_command_writes_a_usable_index(tmp_path, fixture_bam):
 
 
 def test_unported_options_fail_with_one_line(tmp_path, fixture_bam, capsys):
-    for extra in (["--mesh", "on"], ["--num-processes", "2"], ["--recover"]):
+    """The mesh and the multi-process flags are ported; what they still
+    refuse fails with one line: a group without its coordinator, and
+    --mesh on without a CUDA device (no fallback to a CPU mesh)."""
+    import torch
+
+    cases = [(["--device", "cpu", "--num-processes", "2"], "--coordinator")]
+    if not torch.cuda.is_available():
+        cases.append((["--mesh", "on"], "--device cpu"))
+    for extra, message in cases:
         rc = port_cli.main(
             ["germline-threshold", "--reads", fixture_bam,
              "--out", str(tmp_path / "x.vcf"), *extra]
         )
+        err = capsys.readouterr().err
         assert rc == 1
-        assert "not yet ported" in capsys.readouterr().err
+        assert message in err and len(err.strip().splitlines()) == 1
+    # --recover with nothing to resume stops with its own message.
+    with pytest.raises(SystemExit, match="nothing to resume"):
+        port_cli.main(
+            ["germline-threshold", "--reads", fixture_bam, "--device", "cpu",
+             "--out", str(tmp_path / "x.vcf"), "--recover"]
+        )
 
 
 @pytest.mark.parametrize("host_screen", ["0", "1"], ids=["device", "host"])

@@ -173,8 +173,9 @@ def test_dense_tiles_give_the_default_vcf(
 @pytest.mark.parametrize(
     "extra, message",
     [
-        (["--device", "cpu", "--mesh", "on"], "not yet ported"),
-        (["--device", "cpu", "--num-processes", "2"], "not yet ported"),
+        # --mesh on without a CUDA device: no fallback to a CPU mesh.
+        (["--mesh", "on"], "--device cpu"),
+        (["--device", "cpu", "--num-processes", "2"], "--coordinator"),
         ([], "--device cpu"),
         (["--device", "cuda"], "--device cpu"),
     ],
@@ -182,9 +183,7 @@ def test_dense_tiles_give_the_default_vcf(
 def test_refusals_fail_with_one_line(
     tmp_path, fixture_pair, capsys, extra, message
 ):
-    if "--mesh" not in extra and "--num-processes" not in extra and (
-        torch.cuda.is_available()
-    ):
+    if "--num-processes" not in extra and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
     tumor, normal = fixture_pair[0]["bam"]
     out = str(tmp_path / "x.vcf")
@@ -308,8 +307,11 @@ def test_tile_packed_with_another_min_mapq_raises(fixture_pair):
 
 
 def test_mesh_argument_is_refused():
+    """A mesh is taken now (tests/test_torch_mesh.py holds its calls to
+    the JAX package's); what is refused is a mesh with no device."""
     from guacamole_tpu_torch.callers import somatic_standard as port_ss
+    from guacamole_tpu_torch.parallel.mesh import loci_mesh
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="at least one device"):
         port_ss.call_variants(
-            [], [], None, mesh=object(), device=torch.device("cpu"))
+            [], [], None, mesh=loci_mesh([]), device=torch.device("cpu"))

@@ -267,12 +267,20 @@ def _inputs(command, fx, tmp_path):
     "command", ["variant-support", "vaf-histogram", "structural-variant"]
 )
 def test_unported_options_fail_with_one_line(tmp_path, fx, capsys, command):
+    """The mesh and the multi-process flags are ported; what they still
+    refuse fails with one line: a group without its coordinator, and
+    --mesh on without a CUDA device (no fallback to a CPU mesh)."""
+    import torch
+
     inputs = _inputs(command, fx, tmp_path)
-    for extra in (["--mesh", "on"], ["--num-processes", "2"]):
+    cases = [(["--num-processes", "2"], "--coordinator")]
+    if not torch.cuda.is_available():
+        cases.append((["--device", "cuda", "--mesh", "on"], "--device cpu"))
+    for extra, message in cases:
         rc = port_cli.main([command, *inputs, "--device", "cpu", *extra])
         assert rc == 1
         err = capsys.readouterr().err
-        assert "not yet ported" in err and len(err.strip().splitlines()) == 1
+        assert message in err and len(err.strip().splitlines()) == 1
 
 
 @pytest.mark.parametrize(
