@@ -7,9 +7,11 @@ Needs one Hopper card (compute capability 9.0), nvcc and a C++ compiler,
 and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
 
  1. checks the card and prints `nvidia-smi`'s name and power limit;
- 2. builds the port's native host runtime (g++, through the port's own
-    loader) and the CUDA kernels (nvcc, sm_90a, one compiler per source,
-    side by side), printing the build times;
+ 2. builds the port's native host runtime from the package's own C++
+    sources (guacamole_tpu_torch/runtime/csrc/; g++, through the port's
+    own loader; the phase fails if the library came from anything outside
+    the package) and the CUDA kernels (nvcc, sm_90a, one compiler per
+    source, side by side), printing the build times;
  3. holds each CUDA kernel against its plain PyTorch version on the card,
     on the same inputs.
     The counting kernels, with tolerance 0 (every output is an integer):
@@ -52,7 +54,10 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     device screens, checks that both counting kernels launched, that the
     VCF equals the host-screen run's record for record and that
     planted-SNV recall and precision are >= 0.9; then the same for an
-    --emit-ref range through the 8000x spike;
+    --emit-ref range through the 8000x spike; then times the native host
+    layers of that path on the fixture's BAM, best of three: the decode
+    of the whole file, the decode over the partition tasks' .bai chunks,
+    and the pack of the tasks' tiles;
  5. runs the counting tools on the same fixture, each with device screens
     (the full-count form of csr_count_screen: no threshold, no compaction)
     and with host screens, and checks that the outputs are equal byte for
@@ -120,6 +125,7 @@ line is printed.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import os
 import re
@@ -172,13 +178,17 @@ def require_card():
         raise SmokeFailure("torch.cuda.is_available() is false: no GPU")
     cap = torch.cuda.get_device_capability(0)
     check(cap == (9, 0), f"need a Hopper card (capability 9.0), got {cap}")
-    smi = subprocess.run(
+    print(_smi(), flush=True)
+    return torch.device("cuda", 0)
+
+
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    return torch.device("cuda", 0)
 
 
 # --- phase 2: builds ---------------------------------------------------
@@ -207,8 +217,17 @@ def build_all():
     check(lib is not None, "the port's native host runtime did not build")
     check(os.path.dirname(lib._name) == BUILD_DIR,
           f"native runtime loaded from {lib._name}, not from {BUILD_DIR}")
+    # The library is the build of the package's own sources: its name is
+    # the hash of the sources in CSRC_DIR, which lies inside the package.
+    package = os.path.dirname(BUILD_DIR)
+    check(os.path.commonpath([native.CSRC_DIR, package]) == package
+          and lib._name == native._library_path(),
+          f"native runtime {lib._name} not built from the package's own "
+          f"sources in {package}")
     print(
-        f"build: native runtime {native_s:.3f} s -> {lib._name}; CUDA "
+        f"build: native runtime {native_s:.3f} s from "
+        f"{os.path.relpath(native.CSRC_DIR, ROOT)}/"
+        f"{{{','.join(native.SOURCES)}}} -> {lib._name}; CUDA "
         f"kernels {cuda_s:.3f} s in all (0 = reused): "
         + ", ".join(f"{i.source} {i.seconds:.3f} s" for i in infos),
         flush=True,
@@ -1445,6 +1464,83 @@ def run_threshold_slice(kernel_records: dict, manifest, out) -> None:
     matching = _check_equal_vcfs(vcf("ref_device.vcf"), vcf("ref_host.vcf"))
     print(f"emit-ref {loci}: {matching} records, equal to "
           "host screens", flush=True)
+    time_host_layers(bam)
+
+
+def _best_of_three(fn):
+    """("least / most host seconds of three calls", the last result)."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return f"{min(times):.4f} / {max(times):.4f}", out
+
+
+def time_host_layers(bam) -> None:
+    """Host seconds of the native layers of germline-threshold's streaming
+    path (runtime/csrc/), best of three: the decode of the whole BAM, the
+    decode over each partition task's .bai chunks (the CLI's partitions),
+    and the pack of the tasks' tiles as device screens take them (screen
+    fields with the CSR nibble blob). Nothing here launches a kernel."""
+    from guacamole_tpu_torch import cli
+    from guacamole_tpu_torch.callers.common import resolve_loci_builder
+    from guacamole_tpu_torch.callers.germline_threshold import (
+        _per_sample,
+        _sample_tiles,
+    )
+    from guacamole_tpu_torch.callers.streaming import (
+        chunks_for_loci_set,
+        ensure_bam_index,
+        iter_task_sources,
+    )
+    from guacamole_tpu_torch.gio.bam import BamFile
+    from guacamole_tpu_torch.reads.read import InputFilters
+    from guacamole_tpu_torch.runtime.columnar import decode_bam_columnar
+
+    os.environ["GUAC_HOST_SCREEN"] = "0"  # the tiles device screens take
+    parser = argparse.ArgumentParser()
+    cli._add_distributed_args(parser)
+    all_loci = resolve_loci_builder()
+    loci_set = all_loci.result(dict(BamFile(bam).references))
+    partitions = cli._streaming_partitions(parser.parse_args([]), loci_set,
+                                           bam)
+    inverse = partitions.inverse_map()
+    bai = ensure_bam_index(bam)
+    chunks = [chunks_for_loci_set(bam, bai, inverse[t])
+              for t in sorted(inverse)]
+    whole_s, whole = _best_of_three(lambda: decode_bam_columnar(bam).n)
+    chunk_s, in_chunks = _best_of_three(lambda: sum(
+        decode_bam_columnar(bam, chunks=c).n for c in chunks))
+    filters = InputFilters.create(
+        overlaps_loci=all_loci, non_duplicate=True, has_mdtag=True)
+    tasks = iter_task_sources(bam, filters, partitions)
+    check(tasks is not None, "the streaming path did not stream")
+    tasks = list(tasks)
+    device = torch.device("cuda", 0)
+
+    def pack():
+        tiles = rows = blob = 0
+        for _task, task_loci, source in tasks:
+            for tile, _name, _src in _sample_tiles(
+                    _per_sample(source), task_loci, device, 0, 8, None):
+                tiles += 1
+                rows += len(tile.loci)
+                blob += tile.csr_nib.nbytes
+        return tiles, rows, blob
+
+    pack_s, (tiles, rows, blob) = _best_of_three(pack)
+    check(whole > 0 and in_chunks > 0 and rows > 0 and blob > 0,
+          f"host layers: {whole} reads whole, {in_chunks} in chunks, "
+          f"{rows} rows packed")
+    print(
+        f"host layers ({_smi()}; host s, best / worst of three): native "
+        f"decode, whole file {whole_s} ({whole} reads), over the .bai "
+        f"chunks of {len(chunks)} tasks {chunk_s} ({in_chunks} reads); "
+        f"pack of the tasks' tiles {pack_s} ({tiles} tiles, {rows} rows, "
+        f"{blob} B of CSR blob)",
+        flush=True,
+    )
 
 
 def _check_equal_files(a, b):
@@ -2299,6 +2395,8 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    # A crash in native code prints every thread's Python stack first.
+    faulthandler.enable()
     try:
         sys.exit(main(sys.argv[1:]))
     except SmokeFailure as exc:

@@ -6,7 +6,8 @@ hand in CUDA C++ for Hopper (sm_90a). It stands alone: it imports torch,
 never jax, and nothing of guacamole_tpu. Every host layer it needs (BAM
 decoding, loci, the packers and the native runtime's bindings, the exact
 f64 likelihood, filters, VCF output) is its own copy, under the same
-module names, and it builds native/*.cpp into its own _build/ directory.
+module names, and it builds its own copy of the C++ host runtime
+(runtime/csrc/) into its own _build/ directory.
 Its entry points run on the GPU unless the caller asks for the CPU.
 
 Ported so far: the germline-threshold caller (the CSR counting screen and

@@ -302,8 +302,9 @@ def screen_from_allele_sums(
     best score is not finite are kept. This GQ gate has four
     implementations that must stay in sync: guacamole_tpu/ops/kernels.py
     (_screen_from_allele_sums), guacamole_tpu/ops/pallas_kernels.py
-    (_ll_screen_kernel), native/guac_pack.cpp (ll_candidates, f64, 1-phred
-    band), and this one with its CUDA form in ops/csrc/ll_screen.cu."""
+    (_ll_screen_kernel), native/guac_pack.cpp and its copy in
+    runtime/csrc/ (ll_candidates, f64, 1-phred band), and this one with
+    its CUDA form in ops/csrc/ll_screen.cu."""
     parts = screen_parts(
         c, g, is_variant, is_standard_alt, max_alleles, min_phred
     )

@@ -1,4 +1,4 @@
-"""ctypes bindings for the native host runtime (native/guac_runtime.cpp).
+"""ctypes bindings for the native host runtime (runtime/csrc/guac_runtime.cpp).
 
 The shared library performs BGZF inflation (multithreaded), BAM record
 parsing, MD expansion, and pileup event-array construction; this module
@@ -16,14 +16,14 @@ from typing import Optional
 
 import numpy as np
 
-# The port builds its own copy of the library (the JAX package's lives in
-# guacamole_tpu/runtime/, written there by native/Makefile).
+# The port builds its library from its own copy of the C++ sources,
+# shipped in the package beside this module, into the package's _build/.
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = ("guac_runtime.cpp", "guac_pack.cpp")
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
 )
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(_BUILD_DIR)), "native")
-_NATIVE_SOURCES = ("guac_runtime.cpp", "guac_pack.cpp")
-# The flags of native/Makefile.
+# The flags of the JAX package's native/Makefile.
 _CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17")
 _LDFLAGS = ("-shared", "-lz", "-pthread", "-ldl")
 _lib: Optional[ctypes.CDLL] = None
@@ -48,8 +48,8 @@ def _library_path() -> Optional[str]:
     the flags and the host's CPU features; None without the sources."""
     h = hashlib.sha256(" ".join(_CXXFLAGS + _LDFLAGS).encode() + _cpu_flags())
     try:
-        for name in _NATIVE_SOURCES:
-            with open(os.path.join(_NATIVE_DIR, name), "rb") as fh:
+        for name in SOURCES:
+            with open(os.path.join(CSRC_DIR, name), "rb") as fh:
                 h.update(name.encode() + b"\0" + fh.read())
     except OSError:
         return None
@@ -57,8 +57,8 @@ def _library_path() -> Optional[str]:
 
 
 def _try_build(lib_path: str) -> bool:
-    """Compile native/guac_runtime.cpp and native/guac_pack.cpp, unchanged,
-    into the port's _build/ directory if a toolchain is available. The
+    """Compile csrc/guac_runtime.cpp and csrc/guac_pack.cpp into the
+    port's _build/ directory if a toolchain is available. The
     compiler writes to a name of its own and os.replace moves it into
     place, so concurrent first users never load half a file."""
     tmp = f"{lib_path}.{os.getpid()}.tmp"
@@ -67,7 +67,7 @@ def _try_build(lib_path: str) -> bool:
         subprocess.run(
             [
                 os.environ.get("CXX", "g++"), *_CXXFLAGS,
-                *(os.path.join(_NATIVE_DIR, name) for name in _NATIVE_SOURCES),
+                *(os.path.join(CSRC_DIR, name) for name in SOURCES),
                 "-o", tmp, *_LDFLAGS,
             ],
             check=True,

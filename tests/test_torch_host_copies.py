@@ -76,16 +76,17 @@ def _function_source(text, name):
 
 
 def test_native_bindings_differ_only_in_where_the_library_is_built():
-    """runtime/native.py: the port compiles native/*.cpp itself into its
-    own _build/ directory (the JAX package's Makefile writes into
-    guacamole_tpu/runtime/). Everything from the ctypes declarations on is
-    the original."""
+    """runtime/native.py: the port compiles its own copy of the C++
+    sources (runtime/csrc/) into its own _build/ directory (the JAX
+    package's Makefile builds native/*.cpp into guacamole_tpu/runtime/).
+    Everything from the ctypes declarations on is the original."""
     marker = "    lib.guac_decode_bam.restype = ctypes.c_void_p\n"
     want = _rewritten("runtime/native")
     got = _read(PORT_PKG, "runtime/native")
     assert got[got.index(marker):] == want[want.index(marker):]
     head = got[: got.index(marker)]
     assert "_build" in head and "os.replace" in head
+    assert '"csrc"' in head and '"native"' not in head
     assert '"make"' not in head and 'libguac_runtime.so"' not in head
 
 
@@ -334,3 +335,6 @@ def test_port_native_runtime_builds_into_the_ports_build_dir():
     lib = native.load_library()
     assert lib is not None
     assert os.path.dirname(lib._name) == os.path.join(PORT_PKG, "_build")
+    assert native.CSRC_DIR == os.path.join(PORT_PKG, "runtime", "csrc")
+    for name in native.SOURCES:
+        assert os.path.isfile(os.path.join(native.CSRC_DIR, name))

@@ -1,0 +1,498 @@
+"""The port's own copy of the native host runtime (runtime/csrc/).
+
+guacamole_tpu_torch builds its BGZF/BAM/SAM decoder and tile packer from
+its own copy of native/guac_runtime.cpp and native/guac_pack.cpp, shipped
+in the package. This file holds that copy:
+
+- equal to native/*.cpp after the package rename, outside the hunks listed
+  in REPAIRS;
+- free of out-of-bounds reads on malformed input: a standalone harness
+  (tests/native_decode_harness.cpp) built from the copy with
+  AddressSanitizer runs guac_decode_bam, guac_decode_bam_chunks (one
+  chunk over the whole file, .bai chunks, and chunks that start inside a
+  block) and guac_decode_sam over crafted, truncated and mutated inputs,
+  with no sanitizer report, and the whole-file decoder returns no handle
+  wherever the input is malformed;
+- free of data races in the packer: a second harness
+  (tests/native_pack_harness.cpp) built from the copy with
+  ThreadSanitizer packs every position of the fixture's contigs on the
+  packer's threads, with no sanitizer report;
+- equal to the JAX package's library on well-formed input, column for
+  column (whole file, .bai chunks, SAM);
+- enough on its own: the package, copied alone into a directory with no
+  repo around it, builds its library from its own sources and decodes.
+"""
+
+import dataclasses
+import difflib
+import json
+import os
+import shutil
+import struct
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+from guacamole_tpu.runtime import columnar as jax_columnar
+from guacamole_tpu.utils.simulate import make_scale_fixture
+from guacamole_tpu_torch.callers.streaming import ensure_bam_index
+from guacamole_tpu_torch.gio.bai import BamIndex, optimize_chunks
+from guacamole_tpu_torch.runtime import columnar as port_columnar
+from guacamole_tpu_torch.runtime import native as port_native
+from test_torch_host_copies import _REWRITE
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_PKG = os.path.join(ROOT, "guacamole_tpu_torch")
+HARNESS = os.path.join(ROOT, "tests", "native_decode_harness.cpp")
+PACK_HARNESS = os.path.join(ROOT, "tests", "native_pack_harness.cpp")
+
+# The copy's departures from native/*.cpp: (file, reason, the original's
+# lines, the copy's lines), in file order. Each BGZF header walk is bounded
+# by its buffer; where a check fails the walk takes the path that already
+# handles malformed input (return false / break). On well-formed input
+# none of the checks fails, so the outputs are the original's. The packer
+# reads its table of long allele keys under the lock its writers hold,
+# which orders the same reads. A later change to the copy adds its hunks
+# here, each with its reason.
+_SCAN = "scan_bgzf_blocks"
+_AT = "BgzfStream::inflate_at"
+_CHUNKS = "decode_bam_chunks"
+_PACK = "guac_pack_tile, the CSR pass"
+REPAIRS = (
+    ("guac_runtime.cpp",
+     "ISIZE above 64 KiB is corrupt, not a size to allocate",
+     "",
+     "// A BGZF block inflates to at most 64 KiB (SAM/BAM spec 4.1); a larger\n"
+     "// ISIZE is corrupt input, not a size to allocate.\n"
+     "static const uint32_t kBgzfMaxBlock = 65536;\n\n"),
+    ("guac_runtime.cpp",
+     f"{_SCAN}: XLEN must not run past the buffer (read past it at :76)",
+     "",
+     "    // Every header walk stays inside its buffer: the extra field, each\n"
+     "    // subfield and the block's footer.\n"
+     "    if (offset + 12 + xlen > n) return false;\n"),
+    ("guac_runtime.cpp",
+     f"{_SCAN}: a subfield must end inside the extra field (the BSIZE "
+     "memcpy read past the buffer at :81)",
+     "",
+     "      if (pos + 4 + slen > end) return false;\n"),
+    ("guac_runtime.cpp",
+     f"{_SCAN}: BSIZE must cover header and footer (ISIZE was read before "
+     "the block, the inflate got a negative size)",
+     "    if (bsize == 0 || offset + bsize > n) return false;\n",
+     "    if (bsize < 12 + (size_t)xlen + 8 || offset + bsize > n) "
+     "return false;\n"),
+    ("guac_runtime.cpp", f"{_SCAN}: ISIZE bound",
+     "",
+     "    if (isize > kBgzfMaxBlock) return false;\n"),
+    ("guac_runtime.cpp",
+     f"{_AT}: a subfield must end inside the extra field",
+     "",
+     "      if (pos + 4 + slen > xlen) return false;\n"),
+    ("guac_runtime.cpp",
+     f"{_AT}: BSIZE must cover header and footer",
+     "    if (bs == 0 || coffset + bs > fsize) return false;\n",
+     "    if (bs < 12 + (size_t)xlen + 8 || coffset + bs > fsize) "
+     "return false;\n"),
+    ("guac_runtime.cpp", f"{_AT}: ISIZE bound",
+     "",
+     "    if (isize > kBgzfMaxBlock) return false;\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: XLEN must not run past the chunk's buffer (read past "
+     "it at :973)",
+     "",
+     "      if (loff + 12 + xlen > cbuf.size()) break;\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: a subfield must end inside the extra field (the BSIZE "
+     "memcpy read past the buffer at :978)",
+     "",
+     "        if (pos + 4 + slen > hend) {\n"
+     "          bsize = 0;  // a subfield overruns the header: malformed\n"
+     "          break;\n"
+     "        }\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: BSIZE must cover header and footer",
+     "      if (bsize == 0 || loff + bsize > cbuf.size()) break;\n",
+     "      if (bsize < 12 + (size_t)xlen + 8 || loff + bsize > cbuf.size()) "
+     "break;\n"),
+    ("guac_runtime.cpp", f"{_CHUNKS}: ISIZE bound",
+     "",
+     "      if (isize > kBgzfMaxBlock) break;\n"),
+    ("guac_pack.cpp",
+     f"{_PACK}: a row with a long key sorts and classifies its alleles "
+     "under long_key_mu (another block's push_back moved long_keys under "
+     "the reads: a use after free, a crash on the card's host)",
+     "",
+     "        // Other blocks intern long keys while this one reads them: a\n"
+     "        // push_back that grows long_keys moves every key, so a row with\n"
+     "        // a long key reads the table under its lock.\n"
+     "        std::unique_lock<std::mutex> long_lock(long_key_mu, "
+     "std::defer_lock);\n"
+     "        if (has_long) long_lock.lock();\n"),
+    ("guac_pack.cpp", f"{_PACK}: the lock ends with the row's reads",
+     "",
+     "        if (has_long) long_lock.unlock();\n"),
+)
+
+
+def _hunks(original: str, copy: str):
+    a, b = original.splitlines(True), copy.splitlines(True)
+    matcher = difflib.SequenceMatcher(None, a, b, autojunk=False)
+    return [
+        ("".join(a[i0:i1]), "".join(b[j0:j1]))
+        for tag, i0, i1, j0, j1 in matcher.get_opcodes()
+        if tag != "equal"
+    ]
+
+
+@pytest.mark.parametrize("name", port_native.SOURCES)
+def test_copy_equals_native_outside_the_listed_repairs(name):
+    with open(os.path.join(ROOT, "native", name)) as fh:
+        original = fh.read()
+    for pattern, replacement in _REWRITE:
+        original = pattern.sub(replacement, original)
+    with open(os.path.join(port_native.CSRC_DIR, name)) as fh:
+        copy = fh.read()
+    listed = [(was, now) for f, _why, was, now in REPAIRS if f == name]
+    assert _hunks(original, copy) == listed
+
+
+# --- the copy under AddressSanitizer -------------------------------------
+
+# The header bytes the decoders read: ID1 ID2 (0, 1), XLEN (10, 11), and the
+# BC subfield SI1 SI2 SLEN BSIZE (12-17); of FLG (3) only FEXTRA (bit 2).
+_READ_BYTES = {0, 1, *range(10, 18)}
+
+
+def _compile(args):
+    return subprocess.run(args, capture_output=True, text=True, timeout=300)
+
+
+def _build(out, sanitizer, harness):
+    """(compiles, link) of one harness with the port's copy: one g++ per
+    source, then the link."""
+    flags = ["-O1", "-g", f"-fsanitize={sanitizer}", "-fno-omit-frame-pointer",
+             "-std=c++17"]
+    sources = [os.path.join(port_native.CSRC_DIR, n)
+               for n in port_native.SOURCES] + [harness]
+    objects = [str(out / f"{sanitizer}{i}.o") for i in range(len(sources))]
+    exe = str(out / f"{sanitizer}_{os.path.basename(harness)[:-4]}")
+    compiles = [["g++", *flags, "-c", src, "-o", obj]
+                for src, obj in zip(sources, objects)]
+    link = ["g++", f"-fsanitize={sanitizer}", *objects, "-o", exe,
+            "-lz", "-pthread", "-ldl"]
+    return compiles, link, exe
+
+
+@pytest.fixture(scope="module")
+def harnesses(tmp_path_factory):
+    """The decode harness with -fsanitize=address and the pack harness with
+    -fsanitize=thread, each built once with the port's copy: every g++ of
+    both side by side, then the two links."""
+    out = tmp_path_factory.mktemp("sanitized")
+    builds = {"asan": _build(out, "address", HARNESS),
+              "tsan": _build(out, "thread", PACK_HARNESS)}
+    with ThreadPoolExecutor(6) as pool:
+        runs = list(pool.map(_compile, [
+            c for compiles, _, _ in builds.values() for c in compiles]))
+        runs += list(pool.map(_compile, [
+            link for _, link, _ in builds.values()]))
+    for run in runs:
+        assert run.returncode == 0, run.stderr[-4000:]
+    return {name: exe for name, (_, _, exe) in builds.items()}
+
+
+@pytest.fixture(scope="module")
+def harness(harnesses):
+    return harnesses["asan"]
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """The fixture at scale 0.02, depth 0.05, seed 7. Its normal BAM
+    (10,509 bytes, 250 reads) is one data block and the EOF block; its
+    germline BAM (101,728 bytes, 4,306 reads) has 15 blocks, so a chunk's
+    block walk crosses many headers."""
+    out = str(tmp_path_factory.mktemp("small"))
+    manifest = make_scale_fixture(out, scale=0.02, depth_scale=0.05, seed=7)
+    assert manifest["counts"]["normal"] == 250
+    return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
+
+
+def _block_offsets(data: bytes):
+    """Start of every BGZF block of a well-formed file."""
+    starts, off = [], 0
+    while off < len(data):
+        (xlen,) = struct.unpack_from("<H", data, off + 10)
+        assert xlen == 6 and data[off + 12:off + 14] == b"BC"
+        (bsize,) = struct.unpack_from("<H", data, off + 16)
+        starts.append(off)
+        off += bsize + 1
+    assert off == len(data)
+    return starts
+
+
+def _bgzf_header(xlen: int, extra: bytes) -> bytes:
+    return bytes([0x1F, 0x8B, 8, 4, 0, 0, 0, 0, 0, 0xFF]) + struct.pack(
+        "<H", xlen) + extra
+
+
+def _inputs(bam_path, sam_path, n_mutants, out):
+    """(path, kind) of every input made from one BAM (and its SAM):
+    'clean' (well-formed), 'malformed', 'read-bytes' / 'read-bytes0' (a
+    mutation of header bytes the decoders read, past the header block / in
+    it), 'ignored' (a mutation of bytes they skip: CM, MTIME, XFL, OS, FLG
+    outside FEXTRA), 'sam' (SAM text, whole or cut)."""
+    with open(bam_path, "rb") as fh:
+        bam = fh.read()
+    starts = _block_offsets(bam)
+    inputs = [(bam_path, "clean")]
+
+    def write(name, data, kind):
+        path = os.path.join(out, name)
+        with open(path, "wb") as fh:
+            fh.write(data)
+        inputs.append((path, kind))
+
+    # A last header whose XLEN (0xFFFF) runs past the end of the file.
+    write("xlen.bam", bam + _bgzf_header(0xFFFF, bytes(16)), "malformed")
+    # A last header whose BC subfield's BSIZE lies past the end of the file.
+    extra = b"XX" + struct.pack("<H", 8) + bytes(8) + b"BC" + struct.pack(
+        "<H", 2)
+    write("bsize.bam", bam + _bgzf_header(16, extra), "malformed")
+    # A first block whose BSIZE (1) does not cover its own header: its
+    # footer would lie before the buffer and its deflate data would have a
+    # negative length.
+    write("short.bam", bam[:16] + b"\0\0" + bam[18:], "read-bytes0")
+    for cut in range(1, 65):
+        kind = "clean" if len(bam) - cut in starts else "malformed"
+        write(f"cut{cut}.bam", bam[:-cut], kind)
+    rng = np.random.default_rng(2026)
+    for i in range(n_mutants):
+        data = bytearray(bam)
+        picks = rng.choice(len(starts) * 18, size=int(rng.integers(1, 4)),
+                           replace=False)
+        hit = set()  # blocks with a mutated byte that the decoders read
+        for pick in picks:
+            block, byte = divmod(int(pick), 18)
+            flip = int(rng.integers(1, 256))
+            data[starts[block] + byte] ^= flip
+            if byte in _READ_BYTES or (byte == 3 and flip & 4):
+                hit.add(block)
+        kind = ("ignored" if not hit else
+                "read-bytes0" if 0 in hit else "read-bytes")
+        write(f"mut{i}.bam", bytes(data), kind)
+    with open(sam_path, "rb") as fh:
+        sam = fh.read()
+    inputs.append((sam_path, "sam"))
+    for cut in range(1, 65):
+        write(f"cut{cut}.sam", sam[:-cut], "sam")
+    return inputs, bam
+
+
+def _chunk_lists(bam_path, bam, regions):
+    """Chunk lists for guac_decode_bam_chunks: the .bai chunks of each
+    region, and three single chunks that start inside a block (a .bai
+    whose virtual offsets do not land on a block)."""
+    index = BamIndex(ensure_bam_index(bam_path))
+    lists = [optimize_chunks([index.chunks_for_region(*region)])
+             for region in regions]
+    starts = set(_block_offsets(bam))
+    inside = [c for c in (1, 3_001, len(bam) // 2 + 7) if c not in starts]
+    return lists + [[(c << 16, len(bam) << 16)] for c in inside]
+
+
+@pytest.mark.parametrize("sample,mutants,regions", [
+    # the input of the reproduction: one data block
+    ("normal", 300, ((0, 0, 5_000), (0, 5_000, 12_000), (0, 15_000, 20_000))),
+    # 15 blocks, regions on both contigs
+    ("germline", 200, ((0, 0, 5_000), (0, 6_000, 8_000), (1, 40_000, 70_000))),
+])
+def test_copy_reads_no_byte_outside_its_buffers(
+        harness, small, tmp_path, sample, mutants, regions):
+    bam_path = small[f"{sample}_bam"]
+    inputs, bam = _inputs(bam_path, small[sample], mutants, str(tmp_path))
+    lists = _chunk_lists(bam_path, bam, regions)
+    chunks_file = tmp_path / "chunks.txt"
+    chunks_file.write_text("".join(
+        " ".join(f"{b} {e}" for b, e in chunk_list) + "\n"
+        for chunk_list in lists))
+    # An allocation above 64 MiB is a report too: these inputs inflate to
+    # less than 2 MB, so a larger one sized itself from a corrupt ISIZE.
+    env = dict(os.environ,
+               ASAN_OPTIONS="detect_leaks=0:max_allocation_size_mb=64")
+    run = subprocess.run(
+        [harness, str(chunks_file), *(p for p, _ in inputs)],
+        capture_output=True, text=True, timeout=300, env=env,
+    )
+    assert "AddressSanitizer" not in run.stderr, run.stderr[-6000:]
+    assert run.returncode == 0, run.stderr[-6000:]
+    counts = {}
+    for line in run.stdout.splitlines():
+        path, *values = line.split()
+        counts[path] = [int(v) for v in values]
+    assert len(counts) == len(inputs)
+    # Per input: the whole-file decoder, the whole-file chunk, each chunk
+    # list, the SAM decoder.
+    clean = counts[bam_path]
+    n_reads = clean[0]
+    assert clean[1] == n_reads > 0 and clean[-1] == -1
+    assert all(0 < n <= n_reads for n in clean[2:2 + len(regions)]), clean
+    for path, kind in inputs:
+        got = counts[path]
+        bam_call, chunk_calls, sam_call = got[0], got[1:-1], got[-1]
+        if kind == "sam":
+            assert bam_call == -1 and set(chunk_calls) == {-1}, path
+            assert sam_call in (-1, n_reads), (path, sam_call)
+            continue
+        assert sam_call == -1, path  # a BAM is no SAM text
+        if kind in ("clean", "ignored"):
+            assert got == clean, (path, got)
+        elif kind == "read-bytes0":
+            # The header block is malformed: no decoder gives a handle.
+            assert bam_call == -1 and set(chunk_calls) == {-1}, (path, got)
+        else:
+            # Malformed past the header block: the whole-file decoder
+            # refuses; a chunk decoder keeps the records of the blocks
+            # before the fault, never more.
+            assert bam_call == -1, (path, got)
+            for n, want in zip(chunk_calls, clean[1:-1]):
+                assert n == -1 or 0 <= n <= want, (path, got)
+    kinds = [k for _, k in inputs]
+    for kind in ("read-bytes", "read-bytes0", "ignored"):
+        assert kinds.count(kind) >= 5, (kind, kinds.count(kind))
+
+
+# --- the packer's threads under ThreadSanitizer ---------------------------
+
+
+@pytest.mark.parametrize("fixture", ["small", "fx"])
+def test_copy_packs_without_a_data_race(harnesses, request, fixture):
+    """The CSR pass of guac_pack_tile runs one thread per block of rows;
+    every thread interns the long keys of its insertions and deletions
+    into one table. A row that reads that table while another block grows
+    it read freed memory (the reference packer does, and it crashed the
+    germline-standard run on the card's host). Both germline BAMs at
+    scale 0.02 have such rows: the packer over each contig, twice, gives
+    no ThreadSanitizer report and the same screen flags each time."""
+    bam = request.getfixturevalue(fixture)["germline_bam"]
+    run = subprocess.run(
+        [harnesses["tsan"], bam, "2"], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
+    )
+    assert "ThreadSanitizer" not in run.stderr, run.stderr[-6000:]
+    assert run.returncode == 0, run.stderr[-6000:]
+    rows = {}
+    for line in run.stdout.splitlines():
+        contig, n_rows, n_flags = line.split()
+        rows[contig] = (int(n_rows), int(n_flags))
+    assert set(rows) == {"deep1m", "shallow8m"}
+    assert all(n_flags > 0 for _, n_flags in rows.values()), rows
+
+
+# --- the copy against the JAX package's library ---------------------------
+
+
+@pytest.fixture(scope="module")
+def fx(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("sim"))
+    manifest = make_scale_fixture(out, scale=0.02, seed=7)
+    return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
+
+
+def _assert_same_columns(port, ref):
+    assert port is not None and ref is not None
+    assert port.n > 0
+    for field in dataclasses.fields(ref):
+        a, b = getattr(port, field.name), getattr(ref, field.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), field.name
+        else:
+            assert a == b, field.name
+
+
+def _bai_chunks(path):
+    """The .bai chunks of two stretches of shallow8m: a pushdown that skips
+    most of the file (deep1m fits in one 16 kbp bin of the index)."""
+    index = BamIndex(ensure_bam_index(path))
+    return optimize_chunks([index.chunks_for_region(1, 40_000, 70_000),
+                            index.chunks_for_region(1, 100_000, 120_000)])
+
+
+@pytest.mark.parametrize("mode", ["whole", "bai", "sam"])
+def test_copy_decodes_what_the_jax_library_decodes(fx, mode):
+    if mode == "sam":
+        port = port_columnar.decode_sam_columnar(fx["germline"])
+        ref = jax_columnar.decode_sam_columnar(fx["germline"])
+    else:
+        chunks = _bai_chunks(fx["germline_bam"]) if mode == "bai" else None
+        port = port_columnar.decode_bam_columnar(fx["germline_bam"],
+                                                 chunks=chunks)
+        ref = jax_columnar.decode_bam_columnar(fx["germline_bam"],
+                                               chunks=chunks)
+        if chunks is not None:
+            assert 0 < ref.n < 84_296 // 2
+    _assert_same_columns(port, ref)
+
+
+# --- the package alone ----------------------------------------------------
+
+_ALONE = r"""
+import json, os, sys
+
+events = []
+
+
+def hook(event, args):
+    if event == "open" and isinstance(args[0], str):
+        events.append(["open", os.path.abspath(args[0])])
+    elif event == "subprocess.Popen":
+        events.append(["popen", [str(a) for a in args[1]]])
+    elif event == "ctypes.dlopen":
+        events.append(["dlopen", str(args[0])])
+
+
+from guacamole_tpu_torch.runtime import columnar, native
+
+sys.addaudithook(hook)
+lib = native.load_library()
+built = list(events)
+cols = columnar.decode_bam_columnar(sys.argv[1])
+print(json.dumps({"lib": lib and lib._name, "events": built,
+                  "reads": cols.n, "package": native.__file__}))
+"""
+
+
+def test_package_alone_builds_its_library_and_decodes(fx, tmp_path):
+    """The package copied alone, with no native/ beside it: load_library
+    compiles the package's own sources into the package's _build/, and
+    opens, runs and loads nothing outside the package to do so."""
+    alone = tmp_path / "alone"
+    pkg = alone / "guacamole_tpu_torch"
+    shutil.copytree(PORT_PKG, pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(alone)
+    run = subprocess.run(
+        [sys.executable, "-c", _ALONE, fx["germline_bam"]],
+        cwd=str(alone), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = json.loads(run.stdout.splitlines()[-1])
+    assert got["package"].startswith(str(pkg) + os.sep)
+    assert os.path.dirname(got["lib"]) == str(pkg / "_build")
+    assert got["reads"] == 84_296
+    inside = str(pkg) + os.sep
+    compiles = [args for kind, args in got["events"] if kind == "popen"]
+    assert len(compiles) == 1
+    sources = [a for a in compiles[0] if a.endswith(".cpp")]
+    assert sources == [str(pkg / "runtime" / "csrc" / n)
+                       for n in port_native.SOURCES]
+    for kind, what in got["events"]:
+        if kind == "open":
+            assert what.startswith(inside) or what == "/proc/cpuinfo", what
+        elif kind == "dlopen":
+            assert what.startswith(inside), what
