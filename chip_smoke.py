@@ -106,12 +106,25 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     a run whose process 1 dies before the merge (exit 43) and whose
     process 0 must exit 42, and --recover in one process, whose output
     must equal the single-process run's byte for byte;
-11. times all four kernels once more at the median launch of their main
+11. runs the port's native host runtime under the sanitizers on this
+    host: tests/native_pack_harness.cpp and the runtime built with
+    -fsanitize=thread pack the fixture's germline BAM in the CSR and the
+    dense likelihood mode (the first two windows of 114,688 loci of each
+    contig), in the CSR mode again over the 4,096 loci of deep1m's 8000x
+    spike, and its tumor BAM in the likelihood + MAPQ mode (the first
+    eight of 10,240), on 16 threads, the CSR mode flagging rows;
+    tests/native_decode_harness.cpp built with
+    -fsanitize=address decodes every record mutant of tests/bam_mutants.py
+    (made from the scale-0.02 fixture) whole, as one chunk and over its
+    .bai chunks, each refused with a reason that names its field (the one
+    legal mutant decoded); any sanitizer report fails the run;
+12. times all four kernels once more at the median launch of their main
     path in this run (each main-path run prints the shapes its kernels
     were launched at: min / median / max), back to back and with a cold
     L2 cache, and csr_count_screen also at vaf-histogram's median launch
-    in its full-count form;
-12. prints one JSON line of kernel results, then, as the last line,
+    in its full-count form; csr_compact's library form (torch.nonzero,
+    then index_select) is timed and checked at its launch shape too;
+13. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -129,6 +142,7 @@ import faulthandler
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -528,8 +542,9 @@ def check_kernels(device) -> dict:
         f"{n_compact_edge} edge launches equal to the plain version",
         flush=True,
     )
-    # No single PyTorch call counts nibbles per CSR row, and torch.nonzero
-    # plus a gather are two calls (the plain version): no library_ms.
+    # No single PyTorch call counts nibbles per CSR row: no library_ms.
+    # csr_compact's library time (torch.nonzero, then index_select) is
+    # taken at its main path's median launch (time_at_launch_shapes).
     records = {
         name: {
             "name": name, "route": "cuda", "source": COUNT_SCREEN_SOURCE,
@@ -589,6 +604,9 @@ def _time_counting(device, blob, off, words, cold=False, threshold=25):
     }
     out = {"rows": L, "blob_bytes": blob.numel(), "candidates": n_cand,
            "cap": cap}
+    if cold:
+        out["library_cold_ms"] = _time_compact_library(
+            device, flags, counts, cap)
     for name, (kfn, pfn, n_bytes, n_ops) in calls.items():
         p1 = _time_ms(pfn, 3)
         k1 = _time_ms(kfn, 50)
@@ -602,6 +620,33 @@ def _time_counting(device, blob, off, words, cold=False, threshold=25):
         if cold:
             out[name]["cold_ms"] = _time_cold_ms(kfn, device)
     return out
+
+
+def _compact_library(flags, counts, cap):
+    """What csr_compact computes, in PyTorch calls: the candidate rows
+    (torch.nonzero, which waits for the host to learn their number), the
+    first cap of them, their counts and the total."""
+    idx = torch.nonzero(flags).squeeze(1)
+    total = idx.numel()
+    idx = idx[:cap]
+    return idx, counts.index_select(0, idx), total
+
+
+def _time_compact_library(device, flags, counts, cap):
+    """The library form of csr_compact on one tile, its rows and counts
+    held equal to the kernel's, timed as a main-path launch is: the L2
+    flushed before every call, CUDA events around it (nonzero's wait for
+    the host included)."""
+    from guacamole_tpu_torch.ops import cuda_kernels as ck
+
+    raw = ck.csr_compact(flags, counts, cap)
+    idx, rows, total = _compact_library(flags, counts, cap)
+    n = idx.numel()
+    check(int(raw[cap, 0]) == total
+          and torch.equal(raw[:n, 0].to(torch.int64), idx)
+          and torch.equal(raw[:n, 1:], rows.to(torch.int32)),
+          "torch.nonzero + index_select != csr_compact")
+    return _time_cold_ms(lambda: _compact_library(flags, counts, cap), device)
 
 
 # --- phase 3, continued: the likelihood screen ---------------------------
@@ -1322,6 +1367,14 @@ def time_at_launch_shapes(device, records: dict) -> None:
                  timed[name])
         line(name, made, origin + f" {tuple(shape)}", timed[name],
              records.get(name, {}).get("floor_ms"))
+    if "csr_compact" in records:
+        records["csr_compact"]["library_ms"] = timed["library_cold_ms"]
+        records["csr_compact"]["library_call"] = (
+            "torch.nonzero + index_select, launch shape, cold L2")
+    print(f"launch shape: csr_compact's library form (torch.nonzero, "
+          f"index_select) at {made}: {timed['library_cold_ms']:.4f} ms with "
+          f"a cold L2, the kernel {timed['csr_compact']['cold_ms']:.4f} ms",
+          flush=True)
     # The counting screen in its full-count form, as vaf-histogram launches
     # it (only when that path ran in this call).
     shapes = MAIN_PATH_SHAPES.get("vaf-histogram", {}).get("csr_count_screen")
@@ -2254,6 +2307,145 @@ def run_multiprocess_slice(manifest, out) -> None:
           f"files removed", flush=True)
 
 
+# --- phase 11: the native host runtime under the sanitizers --------------
+
+# The packer's modes under ThreadSanitizer, in windows of the loci the
+# callers' tiles cover (PERF.md section 5: the median launches of
+# germline-standard and somatic-standard), on 16 packer threads, one
+# process per line: its instrumented decode is paid once. The first eight
+# windows of deep1m hold its 1000x band and 8000x spike: about 150M
+# elements, which took 179 s in the CSR mode alone under TSan on an H100's
+# host, and the dense modes pay per cell of [L, D] (up to 1.9G in the
+# spike's window). So the germline BAM packs the first two windows of each
+# contig in the CSR and the dense likelihood mode, and the CSR mode again
+# over 4,096 loci from 348,160: deep1m's 8000x spike [350,000, 352,000)
+# with its overflow clump, in the 1000x band, where the threads contend
+# most (about 20M elements); the tumor BAM packs its first eight windows.
+NATIVE_PACKS = (
+    # (sample, guac_pack_tile modes, window, windows per contig, first locus)
+    ("germline_bam", (1, 2), 114_688, 2, 0),
+    ("germline_bam", (1,), 4_096, 1, 348_160),
+    ("tumor_bam", (3,), 10_240, 8, 0),
+)
+NATIVE_MODES = {1: "germline-threshold's CSR",
+                2: "germline-standard's dense likelihood",
+                3: "somatic-standard's likelihood + MAPQ"}
+
+
+def run_native_slice(manifest, out) -> None:
+    """The port's native host runtime under the sanitizers on this host
+    (a data race of the packer once crashed only here). The packer's CSR,
+    dense likelihood and likelihood + MAPQ modes over the scale-1.0
+    fixture's windows under ThreadSanitizer, then every targeted record
+    mutant of tests/bam_mutants.py (made from the scale-0.02 fixture)
+    through the three BAM decoders under AddressSanitizer. Any report
+    fails the run."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import bam_mutants
+    import native_build
+    from guacamole_tpu_torch.gio.bai import (
+        BamIndex,
+        build_bam_index,
+        optimize_chunks,
+    )
+    from guacamole_tpu_torch.utils.simulate import make_scale_fixture
+
+    work = os.path.join(out, "native")
+    os.makedirs(work)
+    t0 = phase_t0 = time.perf_counter()
+    exes = native_build.build(work, {
+        "thread": native_build.PACK_HARNESS,
+        "address": native_build.DECODE_HARNESS})
+    print(f"native: sanitized harnesses built in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for sample, modes, window, windows, first in NATIVE_PACKS:
+        bam = os.path.join(FIXTURE_DIR, manifest["files"][sample])
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [exes["thread"], bam, "1", ",".join(map(str, modes)),
+             str(window), str(windows), "16", str(first)],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"))
+        seconds = time.perf_counter() - t0
+        # stderr: the decode's reports, then for each mode `pack mode M`,
+        # its reports and `pack mode M: S s`.
+        parts = re.split(r"^pack mode (\d+)\n", run.stderr, flags=re.M)
+        print(f"native: the {sample} decoded and packed in {len(modes)} "
+              f"mode(s) under ThreadSanitizer in {seconds:.3f} s; "
+              f"{parts[0].count('WARNING: ThreadSanitizer')} reports in the "
+              f"decode", flush=True)
+        # stdout: per mode and contig, the mode, the contig, its rows, its
+        # windows, a checksum and the likelihood screen's flags.
+        lines = [line.split() for line in run.stdout.splitlines()]
+        for mode, log in zip(parts[1::2], parts[2::2]):
+            timed = re.search(rf"^pack mode {mode}: ([\d.]+) s$", log, re.M)
+            rows, flags = (sum(int(r[k]) for r in lines if r[0] == mode)
+                           for k in (2, 5))
+            print(f"native: pack mode {mode} ({NATIVE_MODES[int(mode)]}) of "
+                  f"the {sample}, windows of {window} loci, the first "
+                  f"{windows} of each contig from locus {first}, 16 threads, "
+                  f"under ThreadSanitizer: "
+                  f"{log.count('WARNING: ThreadSanitizer')} reports, "
+                  f"{timed.group(1) if timed else 'unfinished'} s, {rows} "
+                  f"rows, {flags} flagged", flush=True)
+            check(mode != "1" or flags > 0,
+                  f"pack mode 1 of the {sample} from locus {first} flagged "
+                  f"no row")
+        check("ThreadSanitizer" not in run.stderr,
+              f"ThreadSanitizer over the {sample}: {run.stderr[-4000:]}")
+        check(run.returncode == 0 and len(parts) == 1 + 2 * len(modes),
+              f"pack harness over the {sample} exited {run.returncode}: "
+              f"{run.stderr[-2000:]}")
+
+    t0 = time.perf_counter()
+    small = make_scale_fixture(os.path.join(work, "small"), scale=0.02,
+                               depth_scale=0.05, seed=7)
+    env = dict(os.environ,
+               ASAN_OPTIONS="detect_leaks=0:max_allocation_size_mb=512")
+    reports = refused = accepted = 0
+    for sample in ("normal_bam", "germline_bam"):
+        clean = os.path.join(work, "small", small["files"][sample])
+        bam = bam_mutants.read_bam(clean)
+        ref_id, pos = struct.unpack_from("<ii", bam.stream,
+                                         bam.records[-1] + 4)
+        chunks = optimize_chunks([BamIndex(build_bam_index(
+            clean, os.path.join(work, sample + ".bai"))).chunks_for_region(
+                ref_id, pos, pos + 1)])
+        paths = bam_mutants.write_mutants(clean, work)
+        for mutant in bam_mutants.MUTANTS:
+            path = paths[mutant.name]
+            chunks_file = os.path.join(work, mutant.name + ".chunks")
+            with open(chunks_file, "w") as fh:
+                fh.write(" ".join(
+                    f"{b} {e}" for b, e in bam_mutants.chunks_of(
+                        bam, chunks, os.path.getsize(path))) + "\n")
+            run = subprocess.run([exes["address"], chunks_file, path],
+                                 capture_output=True, text=True, timeout=300,
+                                 env=env)
+            reports += run.stderr.count("ERROR: AddressSanitizer")
+            check("AddressSanitizer" not in run.stderr and run.returncode == 0,
+                  f"AddressSanitizer, {mutant.name}: {run.stderr[-4000:]}")
+            # The whole-file decoder, the chunk decoder over the whole file
+            # and over the last record's .bai chunks, then the SAM decoder.
+            calls = native_build.parse_decodes(run.stdout)[path][:3]
+            if mutant.field is None:
+                check(all(n >= 0 for n, _ in calls),
+                      f"{mutant.name} was refused: {calls}")
+                accepted += 1
+            else:
+                check(all(n == -1 and mutant.field in reason
+                          for n, reason in calls),
+                      f"{mutant.name}: not refused by its field: {calls}")
+                refused += 1
+    print(f"native: {refused + accepted} record mutants of the scale-0.02 "
+          f"normal and germline BAMs, each through the whole-file decoder "
+          f"and the chunk decoder over the file and over its .bai chunks, "
+          f"under AddressSanitizer: {reports} reports, {refused} refused "
+          f"naming their field, {accepted} accepted, "
+          f"{time.perf_counter() - t0:.3f} s; the phase "
+          f"{time.perf_counter() - phase_t0:.3f} s in all", flush=True)
+
+
 def _loaded_forbidden():
     return sorted(
         m for m, mod in sys.modules.items()
@@ -2330,7 +2522,7 @@ def _profile_run(command, args, out) -> None:
 
 
 PHASES = ("build", "kernels", "threshold", "tools", "standard", "somatic",
-          "dense", "mesh", "multiprocess")
+          "dense", "mesh", "multiprocess", "native")
 EXTRA_PHASES = ("profile", "stats_ll")
 
 
@@ -2354,7 +2546,7 @@ def main(argv) -> int:
     if set(phases) & {"kernels", "stats_ll"}:
         records.update(check_stats_ll(device))
     if set(phases) & {"threshold", "tools", "standard", "somatic", "dense",
-                      "mesh", "multiprocess", "profile"}:
+                      "mesh", "multiprocess", "native", "profile"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
@@ -2371,6 +2563,8 @@ def main(argv) -> int:
             run_mesh_slice(records, manifest, out, device)
         if "multiprocess" in phases:
             run_multiprocess_slice(manifest, out)
+        if "native" in phases:
+            run_native_slice(manifest, out)
         if "profile" in phases:
             profile_callers(manifest, out)
     if "kernels" in phases:

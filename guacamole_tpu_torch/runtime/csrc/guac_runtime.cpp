@@ -25,6 +25,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <map>
+#include <memory>
 #include <string>
 #include <thread>
 #include <vector>
@@ -32,6 +33,31 @@
 namespace {
 
 // ---------------------------------------------------------------- utilities
+
+// Why the last decode on this thread returned no handle, for
+// guac_last_error(); empty after a decode that succeeded.
+thread_local std::string g_last_error;
+
+static std::nullptr_t decode_failed(const std::string& why) {
+  g_last_error = why.empty() ? "decode failed" : why;
+  return nullptr;
+}
+
+// Runs the body of a C entry: an exception (std::bad_alloc from a size
+// the input gave) must not cross the C ABI, where it aborts the process.
+template <class Body>
+static void* guarded(Body body) {
+  g_last_error.clear();
+  try {
+    return body();
+  } catch (const std::bad_alloc&) {
+    return decode_failed("out of memory");
+  } catch (const std::exception& e) {
+    return decode_failed(e.what());
+  } catch (...) {
+    return decode_failed("unknown exception");
+  }
+}
 
 struct Buffer {
   std::vector<uint8_t> data;
@@ -338,6 +364,7 @@ static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
   for (size_t c = 0; c < n_cigar; c++) {
     uint32_t len = cigar[c] >> 4;
     uint32_t op = cigar[c] & 0xf;
+    if (op > OP_X) return false;  // no op of the spec; the tables hold 9
     if (op == OP_M || op == OP_EQ || op == OP_X) {
       uint32_t remaining = len;
       while (remaining > 0) {
@@ -586,11 +613,29 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
   std::vector<RecMeta> metas;
   metas.reserve(1024);
 
+  // Every field is bounded by its record's block before it is used. A
+  // record that fails a check ends the parse: r->error names the field
+  // and the record's offset in the inflated stream, and phase 2 never
+  // sees a record that was not checked.
+  auto reject = [&](size_t at, const std::string& why) {
+    r->error = "malformed BAM record at inflated byte " +
+               std::to_string(at) + ": " + why;
+    return false;
+  };
+
   // ---- Phase 1: serial boundary scan + scalar columns + offsets ----
-  while (pos < end_pos && pos + 4 <= u.size()) {
+  while (pos < end_pos) {
+    const size_t at = pos;
+    if (pos + 4 > u.size())
+      return reject(at, "block_size cut by the end of the data");
     int32_t block_size;
     memcpy(&block_size, &u[pos], 4);
-    if (block_size <= 0 || pos + 4 + block_size > u.size()) break;
+    if (block_size < 32)
+      return reject(at, "block_size " + std::to_string(block_size) +
+                            " below the 32 bytes of fixed fields");
+    if (pos + 4 + (size_t)block_size > u.size())
+      return reject(at, "block_size " + std::to_string(block_size) +
+                            " past the end of the data");
     const uint8_t* rec = &u[pos + 4];
     pos += 4 + block_size;
 
@@ -608,6 +653,17 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     uint8_t mapq = (l_read_name_etc >> 8) & 0xff;
     uint16_t n_cigar = flag_nc & 0xffff;
     uint16_t flag = (flag_nc >> 16) & 0xffff;
+    if (l_seq < 0)
+      return reject(at, "negative l_seq " + std::to_string(l_seq));
+    // At most 32 + 255 + 4 * 65535 + 1.5 * (2^31 - 1): no overflow.
+    const size_t need = 32 + (size_t)l_read_name + 4 * (size_t)n_cigar +
+                        ((size_t)l_seq + 1) / 2 + (size_t)l_seq;
+    if (need > (size_t)block_size)
+      return reject(at, "l_read_name " + std::to_string(l_read_name) +
+                            ", n_cigar " + std::to_string(n_cigar) +
+                            " and l_seq " + std::to_string(l_seq) + " need " +
+                            std::to_string(need) + " bytes, block_size is " +
+                            std::to_string(block_size));
 
     size_t p = 32 + l_read_name;
     const uint32_t* cigar = reinterpret_cast<const uint32_t*>(rec + p);
@@ -646,11 +702,17 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
             continue;
           }
           case 'B': {
+            if (tp + 5 > rec_len)
+              return reject(at, "B tag header cut by block_size");
             uint8_t sub = rec[tp];
             uint32_t count;
             memcpy(&count, rec + tp + 1, 4);
             size_t esize = (sub == 'c' || sub == 'C') ? 1
                            : (sub == 's' || sub == 'S') ? 2 : 4;
+            // A uint32 count times at most 4 fits a 64-bit size_t.
+            if ((uint64_t)count * esize > rec_len - (tp + 5))
+              return reject(at, "B tag count " + std::to_string(count) +
+                                    " past block_size");
             tp += 5 + count * esize;
             continue;
           }
@@ -675,9 +737,17 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     for (int i = 0; i < n_cigar; i++) {
       uint32_t op = cigar[i] & 0xf;
       uint32_t len = cigar[i] >> 4;
+      if (op > OP_X)
+        return reject(at, "CIGAR op code " + std::to_string(op) + " above 8");
       if (OP_CONSUMES_REF[op] || op == OP_P) span += len;
       if (OP_CONSUMES_READ[op]) read_len_from_cigar += len;
     }
+    // Positions are int32 in the BAM spec; a larger end would size the
+    // event arrays past any memory. The span sizes them for an unmapped
+    // record (pos -1) too.
+    if ((int64_t)std::max(pos0, 0) + span > INT32_MAX)
+      return reject(at, "pos " + std::to_string(pos0) + " + CIGAR span " +
+                            std::to_string(span) + " past 2^31 - 1");
 
     r->ref_id.push_back(ref_id);
     r->start.push_back(pos0);
@@ -920,10 +990,10 @@ static Reads* decode_bam_chunks(const char* path, int threads,
                                 int64_t n_chunks, const int64_t* vbeg,
                                 const int64_t* vend) {
   BgzfStream stream;
-  if (!stream.open(path)) return nullptr;
+  if (!stream.open(path)) return decode_failed("cannot open the file");
 
   // Header: inflate leading blocks until the header + refs parse.
-  Reads* r = new Reads();
+  std::unique_ptr<Reads> r(new Reads());
   std::map<std::string, int> rg_to_sample;
   std::vector<uint8_t> hdr_u;
   size_t header_end = 0;
@@ -933,13 +1003,11 @@ static Reads* decode_bam_chunks(const char* path, int threads,
     size_t bsize = 0;
     if (!stream.inflate_at(hdr_coffset, &hdr_u, &bsize)) break;
     hdr_coffset += bsize;
-    rc = parse_bam_header(hdr_u, hdr_u.size(), r, &rg_to_sample,
+    rc = parse_bam_header(hdr_u, hdr_u.size(), r.get(), &rg_to_sample,
                           &header_end);
   }
-  if (rc != 0) {
-    delete r;
-    return nullptr;
-  }
+  if (rc != 0)
+    return decode_failed(r->error.empty() ? "truncated BAM header" : r->error);
 
   r->seq_off.push_back(0);
   r->cigar_off.push_back(0);
@@ -1041,10 +1109,9 @@ static Reads* decode_bam_chunks(const char* path, int threads,
         for (int t = 0; t < nthreads; t++) pool.emplace_back(worker);
         for (auto& th : pool) th.join();
       }
-      if (!ok.load()) {
-        delete r;
-        return nullptr;
-      }
+      if (!ok.load())
+        return decode_failed("malformed BGZF block in chunk " +
+                             std::to_string(c));
     }
     // End voffset past the last data block (EOF convention): the chunk
     // covers everything walked.
@@ -1053,10 +1120,11 @@ static Reads* decode_bam_chunks(const char* path, int threads,
     size_t ustart = std::min(u0, u.size());
     if (c0 == 0) ustart = std::max(ustart, header_end);
     if (ustart >= uend) continue;
-    parse_bam_records(u, ustart, uend, r, rg_to_sample, &default_sample,
-                      threads);
+    if (!parse_bam_records(u, ustart, uend, r.get(), rg_to_sample,
+                           &default_sample, threads))
+      return decode_failed(r->error);
   }
-  return r;
+  return r.release();
 }
 
 }  // namespace
@@ -1065,18 +1133,23 @@ static Reads* decode_bam_chunks(const char* path, int threads,
 
 extern "C" {
 
+// Why the last guac_decode_bam, guac_decode_bam_chunks or guac_decode_sam
+// on the calling thread returned no handle (empty after a success).
+const char* guac_last_error() { return g_last_error.c_str(); }
+
 // Opaque handle
 void* guac_decode_bam(const char* path, int threads) {
-  std::vector<uint8_t> raw;
-  if (!read_file(path, &raw)) return nullptr;
-  std::vector<uint8_t> uncompressed;
-  if (!bgzf_decompress(raw, &uncompressed, threads)) return nullptr;
-  Reads* r = new Reads();
-  if (!parse_bam(uncompressed, r, threads)) {
-    delete r;
-    return nullptr;
-  }
-  return r;
+  return guarded([&]() -> void* {
+    std::vector<uint8_t> raw;
+    if (!read_file(path, &raw)) return decode_failed("cannot read the file");
+    std::vector<uint8_t> uncompressed;
+    if (!bgzf_decompress(raw, &uncompressed, threads))
+      return decode_failed("malformed BGZF block");
+    std::unique_ptr<Reads> r(new Reads());
+    if (!parse_bam(uncompressed, r.get(), threads))
+      return decode_failed(r->error);
+    return r.release();
+  });
 }
 
 // Region-pushdown decode: only records in the given BGZF virtual-offset
@@ -1084,7 +1157,9 @@ void* guac_decode_bam(const char* path, int threads) {
 // blocks those chunks touch are inflated.
 void* guac_decode_bam_chunks(const char* path, int threads, int64_t n_chunks,
                              const int64_t* vbeg, const int64_t* vend) {
-  return decode_bam_chunks(path, threads, n_chunks, vbeg, vend);
+  return guarded([&]() -> void* {
+    return decode_bam_chunks(path, threads, n_chunks, vbeg, vend);
+  });
 }
 
 void guac_free_reads(void* handle) { delete static_cast<Reads*>(handle); }
@@ -1514,25 +1589,28 @@ void* guac_build_events(int64_t n, const int64_t* start, const int32_t* mapq,
                         const int64_t* ev_off, int threads,
                         uint8_t* ev_kind, uint8_t* ev_base, uint8_t* ev_qual,
                         uint8_t* ev_mdref, int32_t* mismatches) {
-  Reads* r = new Reads();
-  fill_events_columns(n, start, mapq, seq_off, seq, qual, cigar_off,
-                      cigar_len, cigar_op, md_off, md_text, ev_off, threads,
-                      ev_kind, ev_base, ev_qual, ev_mdref, mismatches, r);
-  return r;
+  return guarded([&]() -> void* {
+    std::unique_ptr<Reads> r(new Reads());
+    fill_events_columns(n, start, mapq, seq_off, seq, qual, cigar_off,
+                        cigar_len, cigar_op, md_off, md_text, ev_off, threads,
+                        ev_kind, ev_base, ev_qual, ev_mdref, mismatches,
+                        r.get());
+    return r.release();
+  });
 }
 
 // Decode a SAM text file into the same columnar handle as guac_decode_bam.
 void* guac_decode_sam(const char* path, int threads) {
-  std::vector<uint8_t> raw;
-  if (!read_file(path, &raw)) return nullptr;
-  size_t size = raw.size();
-  raw.push_back(0);  // strtol guard for a truncated final line
-  Reads* r = new Reads();
-  if (!parse_sam_text(raw, size, r, threads)) {
-    delete r;
-    return nullptr;
-  }
-  return r;
+  return guarded([&]() -> void* {
+    std::vector<uint8_t> raw;
+    if (!read_file(path, &raw)) return decode_failed("cannot read the file");
+    size_t size = raw.size();
+    raw.push_back(0);  // strtol guard for a truncated final line
+    std::unique_ptr<Reads> r(new Reads());
+    if (!parse_sam_text(raw, size, r.get(), threads))
+      return decode_failed(r->error);
+    return r.release();
+  });
 }
 
 int64_t guac_num_specials(void* h) {

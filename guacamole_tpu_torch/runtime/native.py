@@ -16,6 +16,8 @@ from typing import Optional
 
 import numpy as np
 
+from guacamole_tpu_torch.utils.progress import progress
+
 # The port builds its library from its own copy of the C++ sources,
 # shipped in the package beside this module, into the package's _build/.
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -60,7 +62,9 @@ def _try_build(lib_path: str) -> bool:
     """Compile csrc/guac_runtime.cpp and csrc/guac_pack.cpp into the
     port's _build/ directory if a toolchain is available. The
     compiler writes to a name of its own and os.replace moves it into
-    place, so concurrent first users never load half a file."""
+    place, so concurrent first users never load half a file. A failed
+    build says why, with the last 20 lines of the compiler's errors:
+    every caller then decodes and packs in Python, many times slower."""
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     try:
         os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -76,9 +80,16 @@ def _try_build(lib_path: str) -> bool:
         )
         os.replace(tmp, lib_path)
         return True
-    except (OSError, subprocess.SubprocessError):
+    except (OSError, subprocess.SubprocessError) as exc:
         if os.path.exists(tmp):
             os.remove(tmp)
+        errors = (getattr(exc, "stderr", None) or b"").decode(
+            errors="replace").splitlines()[-20:]
+        progress(
+            "The native runtime did not build (%s: %s); decoding and "
+            "packing in Python.%s"
+            % (type(exc).__name__, exc, "".join("\n  " + e for e in errors))
+        )
         return False
 
 
@@ -99,6 +110,8 @@ def load_library() -> Optional[ctypes.CDLL]:
 
     lib.guac_decode_bam.restype = ctypes.c_void_p
     lib.guac_decode_bam.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.guac_last_error.restype = ctypes.c_char_p
+    lib.guac_last_error.argtypes = []
     if hasattr(lib, "guac_decode_sam"):
         lib.guac_decode_sam.restype = ctypes.c_void_p
         lib.guac_decode_sam.argtypes = [ctypes.c_char_p, ctypes.c_int]
@@ -580,7 +593,8 @@ def build_events_native(
 
 def decode_bam_native(path: str, threads: int = 0, chunks=None):
     """Decode a BAM with the native runtime. Returns a dict of numpy arrays
-    + metadata, or None if the library is unavailable or decoding failed.
+    + metadata, or None if the library is unavailable. Raises ValueError,
+    naming the file and the library's reason, where it refuses the input.
 
     chunks: optional merged (vstart, vend) BGZF virtual-offset list from a
     .bai query; only those records are decoded (region pushdown)."""
@@ -605,18 +619,24 @@ def decode_bam_native(path: str, threads: int = 0, chunks=None):
         )
     else:
         handle = lib.guac_decode_bam(path.encode(), threads)
+    if not handle:
+        raise ValueError(f"{path}: {lib.guac_last_error().decode()}")
     return _reads_handle_to_dict(lib, handle)
 
 
 def decode_sam_native(path: str, threads: int = 0):
     """Decode a SAM text file with the native runtime into the same
-    columnar dict as decode_bam_native, or None if unavailable."""
+    columnar dict as decode_bam_native, or None if unavailable. Raises
+    ValueError, naming the file and the reason, where the library refuses
+    the input."""
     lib = load_library()
     if lib is None or not hasattr(lib, "guac_decode_sam"):
         return None
     if threads <= 0:
         threads = min(os.cpu_count() or 1, 16)
     handle = lib.guac_decode_sam(path.encode(), threads)
+    if not handle:
+        raise ValueError(f"{path}: {lib.guac_last_error().decode()}")
     return _reads_handle_to_dict(lib, handle)
 
 

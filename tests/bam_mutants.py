@@ -1,0 +1,240 @@
+"""Malformed BAM records for the record parser of the port's native runtime.
+
+Each targeted mutant changes one field of a BAM's last record (or cuts
+it, or appends a tag to it) and writes the file again: the blocks before
+the one that holds the record's start are kept byte for byte, the rest of
+the inflated stream is compressed anew with gio/bgzf.compress_block. So a
+.bai chunk of the clean file stays a chunk of the mutant, once an end that
+lay past the kept blocks is moved to the mutant's end (`chunks_of`).
+
+Used by tests/test_torch_native_records.py and by chip_smoke.py's `native`
+phase; it imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+from guacamole_tpu_torch.gio.bgzf import (
+    BGZF_EOF_MARKER,
+    compress_block,
+    decompress_block,
+)
+
+INT32_MAX = (1 << 31) - 1
+_BLOCK = 0xFF00  # inflated bytes per block written, as BgzfWriter does
+# Offsets of the fixed fields in a record, counted from its block_size.
+_POS, _L_READ_NAME, _N_CIGAR, _L_SEQ = 8, 12, 16, 20
+
+
+class Bam(NamedTuple):
+    """A BAM taken apart: its compressed blocks, the inflated stream, the
+    inflated offset of each block, where the records start and where each
+    record starts."""
+
+    data: bytes
+    coffsets: List[int]
+    ustarts: List[int]
+    stream: bytes
+    header_end: int
+    records: List[int]
+
+
+def read_bam(path: str) -> Bam:
+    with open(path, "rb") as fh:
+        data = fh.read()
+    coffsets, ustarts, parts, off, total = [], [], [], 0, 0
+    while off < len(data):
+        block, bsize = decompress_block(data, off)
+        coffsets.append(off)
+        ustarts.append(total)
+        parts.append(block)
+        total += len(block)
+        off += bsize
+    stream = b"".join(parts)
+    (l_text,) = struct.unpack_from("<i", stream, 4)
+    pos = 8 + l_text
+    (n_ref,) = struct.unpack_from("<i", stream, pos)
+    pos += 4
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", stream, pos)
+        pos += 4 + l_name + 4
+    header_end, records = pos, []
+    while pos < len(stream):
+        records.append(pos)
+        pos += 4 + struct.unpack_from("<i", stream, pos)[0]
+    return Bam(data, coffsets, ustarts, stream, header_end, records)
+
+
+def compress(stream: bytes) -> bytes:
+    return b"".join(compress_block(stream[i:i + _BLOCK])
+                    for i in range(0, len(stream), _BLOCK)) + BGZF_EOF_MARKER
+
+
+def _kept_block(bam: Bam) -> int:
+    """Index of the block that holds the start of the last record."""
+    last = bam.records[-1]
+    return max(i for i, u in enumerate(bam.ustarts) if u <= last)
+
+
+def rewrite_last(bam: Bam, new_stream: bytes) -> bytes:
+    """The file of a stream that equals bam.stream before its last record:
+    the blocks before the one holding that record's start byte for byte,
+    the rest compressed anew."""
+    k = _kept_block(bam)
+    assert new_stream[:bam.records[-1]] == bam.stream[:bam.records[-1]]
+    return bam.data[:bam.coffsets[k]] + compress(new_stream[bam.ustarts[k]:])
+
+
+def chunks_of(bam: Bam, chunks, mutant_size: int):
+    """The clean file's .bai chunks as chunks of a mutant made by
+    rewrite_last: offsets in the kept blocks and in the first rewritten
+    one stay; an end past them (the next block, or the file's end) becomes
+    the mutant's end."""
+    kept = bam.coffsets[_kept_block(bam)]
+    return [(b, e if (e >> 16) <= kept else mutant_size << 16)
+            for b, e in chunks]
+
+
+def _set(fmt: str, at: int, value) -> Callable[[bytearray], None]:
+    def edit(rec: bytearray) -> None:
+        struct.pack_into(fmt, rec, at, value)
+    return edit
+
+
+def _cigar_at(rec: bytes) -> int:
+    return 36 + rec[_L_READ_NAME]
+
+
+def _first_op(length: int, op: int, pos: Optional[int] = None):
+    def edit(rec: bytearray) -> None:
+        struct.pack_into("<I", rec, _cigar_at(rec), (length << 4) | op)
+        if pos is not None:
+            struct.pack_into("<i", rec, _POS, pos)
+    return edit
+
+
+def _long_ops(count: int, pos: int):
+    """The first CIGAR op becomes count ops of 2^28 - 1 M at pos: n_cigar
+    and block_size grow with the ops inserted."""
+    def edit(rec: bytearray) -> None:
+        at = _cigar_at(rec)
+        word = struct.pack("<I", (((1 << 28) - 1) << 4) | 0)
+        rec[at:at + 4] = word * count
+        (n_cigar,) = struct.unpack_from("<H", rec, _N_CIGAR)
+        struct.pack_into("<H", rec, _N_CIGAR, n_cigar + count - 1)
+        struct.pack_into("<i", rec, _POS, pos)
+        struct.pack_into("<i", rec, 0, len(rec) - 4)
+    return edit
+
+
+def _op_code(code: int):
+    def edit(rec: bytearray) -> None:
+        at = _cigar_at(rec)
+        (word,) = struct.unpack_from("<I", rec, at)
+        struct.pack_into("<I", rec, at, (word & ~0xF) | code)
+    return edit
+
+
+def _append(tail: bytes):
+    def edit(rec: bytearray) -> None:
+        rec.extend(tail)
+        struct.pack_into("<i", rec, 0, len(rec) - 4)
+    return edit
+
+
+def _cut(rec: bytearray) -> None:
+    del rec[len(rec) // 2:]
+
+
+class Mutant(NamedTuple):
+    name: str
+    edit: Callable[[bytearray], None]  # rewrites the record in place
+    field: Optional[str]  # what the refusal must name; None: accepted
+    object_reader_raises: bool  # gio/bam.py BamFile.records() raises too
+
+
+# One field of the last record each. The first seven are the rows of the
+# reproduction on the scale-0.02 fixture; the seventh, one CIGAR op of
+# 2^28 - 1 bases, is a legal 28-bit length and stays accepted (the read's
+# CIGAR does not match its sequence, so it is marked inconsistent).
+MUTANTS = (
+    Mutant("l_seq_2e24", _set("<i", _L_SEQ, 1 << 24), "l_seq", True),
+    Mutant("l_seq_negative", _set("<i", _L_SEQ, -7), "l_seq", True),
+    Mutant("n_cigar_ffff", _set("<H", _N_CIGAR, 0xFFFF), "n_cigar", True),
+    Mutant("l_read_name_255", _set("<B", _L_READ_NAME, 255), "l_read_name",
+           True),
+    Mutant("cigar_op_9", _op_code(9), "CIGAR op", False),
+    Mutant("block_size_8", _set("<i", 0, 8), "block_size", True),
+    Mutant("op_2e28_m", _first_op((1 << 28) - 1, 0), None, False),
+    Mutant("block_size_0", _set("<i", 0, 0), "block_size", True),
+    Mutant("block_size_31", _set("<i", 0, 31), "block_size", True),
+    Mutant("block_size_past_end", _set("<i", 0, 1_000_000), "block_size",
+           False),
+    # A B tag whose subtype and count lie past the block's end.
+    Mutant("b_tag_header_cut", _append(b"ZZBc\0\0"), "B tag", False),
+    # A B tag of 1,000 int8 values with 2 in the block.
+    Mutant("b_tag_count", _append(b"ZZBc" + struct.pack("<I", 1000) + b"\1\2"),
+           "B tag count", False),
+    Mutant("record_cut", _cut, "block_size", False),
+    Mutant("span_past_int32",
+           _first_op((1 << 28) - 1, 0, pos=INT32_MAX - (1 << 27)), "span",
+           False),
+    # An unmapped record (pos -1) whose nine ops of 2^28 - 1 bases span
+    # more than 2^31 - 1: the span alone sizes its event arrays.
+    Mutant("span_unmapped", _long_ops(9, -1), "span", False),
+)
+
+
+def make_mutant(bam: Bam, mutant: Mutant) -> bytes:
+    start = bam.records[-1]
+    rec = bytearray(bam.stream[start:])
+    mutant.edit(rec)
+    return rewrite_last(bam, bam.stream[:start] + bytes(rec))
+
+
+def write_mutants(bam_path: str, out_dir: str) -> Dict[str, str]:
+    """{mutant name: path} of every targeted mutant of one BAM."""
+    bam = read_bam(bam_path)
+    stem = os.path.splitext(os.path.basename(bam_path))[0]
+    paths = {}
+    for mutant in MUTANTS:
+        path = os.path.join(out_dir, f"{stem}.{mutant.name}.bam")
+        with open(path, "wb") as fh:
+            fh.write(make_mutant(bam, mutant))
+        paths[mutant.name] = path
+    return paths
+
+
+def random_mutants(bam_path: str, out_dir: str, n: int,
+                   seed: int = 2026) -> List[Tuple[str, str]]:
+    """(path, what) of n mutants of one BAM: each changes one byte, or
+    writes one int32, at a seeded place in the record area of the inflated
+    stream, which is then compressed anew."""
+    bam = read_bam(bam_path)
+    rng = np.random.default_rng(seed)
+    specials = [0, -1, 1, INT32_MAX, -INT32_MAX - 1, 1 << 24, 0xFFFF,
+                ((1 << 28) - 1) << 4, (((1 << 28) - 1) << 4) | 2]
+    out = []
+    for i in range(n):
+        stream = bytearray(bam.stream)
+        at = int(rng.integers(bam.header_end, len(stream)))
+        if i % 2 == 0:
+            flip = int(rng.integers(1, 256))
+            stream[at] ^= flip
+            what = f"byte {at} ^= {flip}"
+        else:
+            at = min(at, len(stream) - 4)
+            value = (int(rng.choice(specials)) if rng.random() < 0.5
+                     else int(rng.integers(-(1 << 31), 1 << 31)))
+            struct.pack_into("<I", stream, at, value & 0xFFFFFFFF)
+            what = f"int32 {at} = {value}"
+        path = os.path.join(out_dir, f"fuzz{i}.bam")
+        with open(path, "wb") as fh:
+            fh.write(compress(bytes(stream)))
+        out.append((path, what))
+    return out

@@ -8,7 +8,8 @@
 // the whole file ([0, size << 16)) and over each line of the file CHUNKS
 // (BGZF virtual offsets, begin and end of each chunk in turn), and
 // guac_decode_sam, and prints one line: the input, then each call's read
-// count, or -1 where the call returned no handle.
+// count, or -1 and the library's reason (guac_last_error) where the call
+// returned no handle, the fields separated by tabs.
 
 #include <cstdint>
 #include <cstdio>
@@ -24,13 +25,14 @@ void* guac_decode_bam_chunks(const char* path, int threads, int64_t n_chunks,
 void* guac_decode_sam(const char* path, int threads);
 int64_t guac_num_reads(void* h);
 void guac_free_reads(void* h);
+const char* guac_last_error();
 }
 
-static long long count_and_free(void* handle) {
-  if (handle == nullptr) return -1;
+static std::string count_and_free(void* handle) {
+  if (handle == nullptr) return std::string("-1 ") + guac_last_error();
   long long n = guac_num_reads(handle);
   guac_free_reads(handle);
-  return n;
+  return std::to_string(n);
 }
 
 int main(int argc, char** argv) {
@@ -56,7 +58,7 @@ int main(int argc, char** argv) {
     int64_t size = ftell(f);
     fclose(f);
 
-    std::vector<long long> counts;
+    std::vector<std::string> counts;
     counts.push_back(count_and_free(guac_decode_bam(path, threads)));
     int64_t whole_beg = 0, whole_end = size << 16;
     counts.push_back(count_and_free(
@@ -72,7 +74,7 @@ int main(int argc, char** argv) {
     }
     counts.push_back(count_and_free(guac_decode_sam(path, threads)));
     printf("%s", path);
-    for (long long n : counts) printf(" %lld", n);
+    for (const std::string& n : counts) printf("\t%s", n.c_str());
     printf("\n");
   }
   return 0;

@@ -79,11 +79,33 @@ def test_native_bindings_differ_only_in_where_the_library_is_built():
     """runtime/native.py: the port compiles its own copy of the C++
     sources (runtime/csrc/) into its own _build/ directory (the JAX
     package's Makefile builds native/*.cpp into guacamole_tpu/runtime/).
-    Everything from the ctypes declarations on is the original."""
+    Everything from the ctypes declarations on is the original, apart from
+    the library's error channel: the declaration of guac_last_error, and
+    the two decode functions, which raise ValueError with the library's
+    reason where the original returns None for a refused input."""
     marker = "    lib.guac_decode_bam.restype = ctypes.c_void_p\n"
     want = _rewritten("runtime/native")
     got = _read(PORT_PKG, "runtime/native")
-    assert got[got.index(marker):] == want[want.index(marker):]
+    want_tail, got_tail = want[want.index(marker):], got[got.index(marker):]
+    declaration = ("    lib.guac_last_error.restype = ctypes.c_char_p\n"
+                   "    lib.guac_last_error.argtypes = []\n")
+    assert got_tail.count(declaration) == 1
+    got_tail = got_tail.replace(declaration, "")
+    refusal = ("    if not handle:\n        raise ValueError("
+               'f"{path}: {lib.guac_last_error().decode()}")\n')
+    for name in ("decode_bam_native", "decode_sam_native"):
+        want_fn = _function_source(want_tail, name)
+        got_fn = _function_source(got_tail, name)
+        assert got_fn.count(refusal) == 1, name
+        # The docstrings say what a refusal does; the code is the original
+        # plus the refusal before the handle is read.
+        doc = re.compile(r'"""(.*?)"""', re.DOTALL)
+        assert doc.sub("", got_fn.replace(refusal, "")) == doc.sub(
+            "", want_fn), name
+        assert "Raises ValueError" in " ".join(
+            doc.search(got_fn).group(1).split()), name
+        got_tail = got_tail.replace(got_fn, want_fn)
+    assert got_tail == want_tail
     head = got[: got.index(marker)]
     assert "_build" in head and "os.replace" in head
     assert '"csrc"' in head and '"native"' not in head

@@ -12,11 +12,14 @@ in the package. This file holds that copy:
   chunk over the whole file, .bai chunks, and chunks that start inside a
   block) and guac_decode_sam over crafted, truncated and mutated inputs,
   with no sanitizer report, and the whole-file decoder returns no handle
-  wherever the input is malformed;
-- free of data races in the packer: a second harness
-  (tests/native_pack_harness.cpp) built from the copy with
-  ThreadSanitizer packs every position of the fixture's contigs on the
-  packer's threads, with no sanitizer report;
+  wherever the input is malformed (malformed records:
+  tests/test_torch_native_records.py);
+- free of data races in the packer and the event builder: a second
+  harness (tests/native_pack_harness.cpp) built from the copy with
+  ThreadSanitizer packs the fixture's contigs on the packer's threads in
+  each of its four modes (whole contigs for the CSR mode, windows for the
+  dense ones) and rebuilds the event arrays with guac_build_events on 16
+  threads, with no sanitizer report;
 - equal to the JAX package's library on well-formed input, column for
   column (whole file, .bai chunks, SAM);
 - enough on its own: the package, copied alone into a directory with no
@@ -31,7 +34,6 @@ import shutil
 import struct
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -42,12 +44,11 @@ from guacamole_tpu_torch.callers.streaming import ensure_bam_index
 from guacamole_tpu_torch.gio.bai import BamIndex, optimize_chunks
 from guacamole_tpu_torch.runtime import columnar as port_columnar
 from guacamole_tpu_torch.runtime import native as port_native
+import native_build
 from test_torch_host_copies import _REWRITE
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_PKG = os.path.join(ROOT, "guacamole_tpu_torch")
-HARNESS = os.path.join(ROOT, "tests", "native_decode_harness.cpp")
-PACK_HARNESS = os.path.join(ROOT, "tests", "native_pack_harness.cpp")
 
 # The copy's departures from native/*.cpp: (file, reason, the original's
 # lines, the copy's lines), in file order. Each BGZF header walk is bounded
@@ -60,8 +61,46 @@ PACK_HARNESS = os.path.join(ROOT, "tests", "native_pack_harness.cpp")
 _SCAN = "scan_bgzf_blocks"
 _AT = "BgzfStream::inflate_at"
 _CHUNKS = "decode_bam_chunks"
+_PARSE = "parse_bam_records"
 _PACK = "guac_pack_tile, the CSR pass"
 REPAIRS = (
+    ("guac_runtime.cpp",
+     "the handles the decoders build are held by std::unique_ptr",
+     "",
+     "#include <memory>\n"),
+    ("guac_runtime.cpp",
+     "the error channel: g_last_error keeps why a decoder returned no handle "
+     "(guac_last_error); guarded keeps an exception (std::bad_alloc from a "
+     "size the input gave) from crossing the C ABI, where it aborts the "
+     "process",
+     "",
+     "\n"
+     "// Why the last decode on this thread returned no handle, for\n"
+     "// guac_last_error(); empty after a decode that succeeded.\n"
+     "thread_local std::string g_last_error;\n"
+     "\n"
+     "static std::nullptr_t decode_failed(const std::string& why) {\n"
+     "  g_last_error = why.empty() ? \"decode failed\" : why;\n"
+     "  return nullptr;\n"
+     "}\n"
+     "\n"
+     "// Runs the body of a C entry: an exception (std::bad_alloc from a"
+     " size\n"
+     "// the input gave) must not cross the C ABI, where it aborts the"
+     " process.\n"
+     "template <class Body>\n"
+     "static void* guarded(Body body) {\n"
+     "  g_last_error.clear();\n"
+     "  try {\n"
+     "    return body();\n"
+     "  } catch (const std::bad_alloc&) {\n"
+     "    return decode_failed(\"out of memory\");\n"
+     "  } catch (const std::exception& e) {\n"
+     "    return decode_failed(e.what());\n"
+     "  } catch (...) {\n"
+     "    return decode_failed(\"unknown exception\");\n"
+     "  }\n"
+     "}\n"),
     ("guac_runtime.cpp",
      "ISIZE above 64 KiB is corrupt, not a size to allocate",
      "",
@@ -89,6 +128,102 @@ REPAIRS = (
      "",
      "    if (isize > kBgzfMaxBlock) return false;\n"),
     ("guac_runtime.cpp",
+     "expand_md: an op code above 8 indexed past the 9-entry op tables "
+     "(native/guac_runtime.cpp:378)",
+     "",
+     "    if (op > OP_X) return false;  // no op of the spec; the tables hold"
+     " 9\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: a failed check names the field and the record's offset in "
+     "the inflated stream, and ends the parse: phase 2 sees only checked "
+     "records",
+     "",
+     "  // Every field is bounded by its record's block before it is used. A\n"
+     "  // record that fails a check ends the parse: r->error names the"
+     " field\n"
+     "  // and the record's offset in the inflated stream, and phase 2 never\n"
+     "  // sees a record that was not checked.\n"
+     "  auto reject = [&](size_t at, const std::string& why) {\n"
+     "    r->error = \"malformed BAM record at inflated byte \" +\n"
+     "               std::to_string(at) + \": \" + why;\n"
+     "    return false;\n"
+     "  };\n"
+     "\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: a record whose block_size is cut by the end of the data is "
+     "refused, not dropped",
+     "  while (pos < end_pos && pos + 4 <= u.size()) {\n",
+     "  while (pos < end_pos) {\n"
+     "    const size_t at = pos;\n"
+     "    if (pos + 4 > u.size())\n"
+     "      return reject(at, \"block_size cut by the end of the data\");\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: block_size must cover the 32 bytes of fixed fields (a "
+     "block_size of 8 read 32 bytes and was accepted, :584) and end inside "
+     "the data (an overhanging record was dropped in silence)",
+     "    if (block_size <= 0 || pos + 4 + block_size > u.size()) break;\n",
+     "    if (block_size < 32)\n"
+     "      return reject(at, \"block_size \" + std::to_string(block_size) +\n"
+     "                            \" below the 32 bytes of fixed fields\");\n"
+     "    if (pos + 4 + (size_t)block_size > u.size())\n"
+     "      return reject(at, \"block_size \" + std::to_string(block_size) +\n"
+     "                            \" past the end of the data\");\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: l_seq >= 0, and l_read_name, n_cigar and l_seq must fit "
+     "block_size (phase 2 read past the heap buffer, :744-761)",
+     "",
+     "    if (l_seq < 0)\n"
+     "      return reject(at, \"negative l_seq \" + std::to_string(l_seq));\n"
+     "    // At most 32 + 255 + 4 * 65535 + 1.5 * (2^31 - 1): no overflow.\n"
+     "    const size_t need = 32 + (size_t)l_read_name + 4 * (size_t)n_cigar"
+     " +\n"
+     "                        ((size_t)l_seq + 1) / 2 + (size_t)l_seq;\n"
+     "    if (need > (size_t)block_size)\n"
+     "      return reject(at, \"l_read_name \" + std::to_string(l_read_name)"
+     " +\n"
+     "                            \", n_cigar \" + std::to_string(n_cigar) +\n"
+     "                            \" and l_seq \" + std::to_string(l_seq) +"
+     " \" need \" +\n"
+     "                            std::to_string(need) + \" bytes, block_size"
+     " is \" +\n"
+     "                            std::to_string(block_size));\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}, tag scan: a B tag's subtype and count must lie in the block "
+     "(read past it at :640)",
+     "",
+     "            if (tp + 5 > rec_len)\n"
+     "              return reject(at, \"B tag header cut by block_size\");\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}, tag scan: a B tag's elements must fit the block",
+     "",
+     "            // A uint32 count times at most 4 fits a 64-bit size_t.\n"
+     "            if ((uint64_t)count * esize > rec_len - (tp + 5))\n"
+     "              return reject(at, \"B tag count \" +"
+     " std::to_string(count) +\n"
+     "                                    \" past block_size\");\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: a CIGAR op code above 8 indexed past the 9-entry op tables "
+     "(:669)",
+     "",
+     "      if (op > OP_X)\n"
+     "        return reject(at, \"CIGAR op code \" + std::to_string(op) + \""
+     " above 8\");\n"),
+    ("guac_runtime.cpp",
+     f"{_PARSE}: pos + CIGAR span must stay an int32 position, and the span "
+     "of an unmapped record too (a larger span sized the event arrays past "
+     "any memory)",
+     "",
+     "    // Positions are int32 in the BAM spec; a larger end would size"
+     " the\n"
+     "    // event arrays past any memory. The span sizes them for an"
+     " unmapped\n"
+     "    // record (pos -1) too.\n"
+     "    if ((int64_t)std::max(pos0, 0) + span > INT32_MAX)\n"
+     "      return reject(at, \"pos \" + std::to_string(pos0) + \" + CIGAR"
+     " span \" +\n"
+     "                            std::to_string(span) + \" past 2^31 -"
+     " 1\");\n"),
+    ("guac_runtime.cpp",
      f"{_AT}: a subfield must end inside the extra field",
      "",
      "      if (pos + 4 + slen > xlen) return false;\n"),
@@ -100,6 +235,29 @@ REPAIRS = (
     ("guac_runtime.cpp", f"{_AT}: ISIZE bound",
      "",
      "    if (isize > kBgzfMaxBlock) return false;\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a refusal says why",
+     "  if (!stream.open(path)) return nullptr;\n",
+     "  if (!stream.open(path)) return decode_failed(\"cannot open the"
+     " file\");\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: the handle is freed on every refusal and exception",
+     "  Reads* r = new Reads();\n",
+     "  std::unique_ptr<Reads> r(new Reads());\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: the header parse fills the held handle",
+     "    rc = parse_bam_header(hdr_u, hdr_u.size(), r, &rg_to_sample,\n",
+     "    rc = parse_bam_header(hdr_u, hdr_u.size(), r.get(), "
+     "&rg_to_sample,\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a refused header says why",
+     "  if (rc != 0) {\n"
+     "    delete r;\n"
+     "    return nullptr;\n"
+     "  }\n",
+     "  if (rc != 0)\n"
+     "    return decode_failed(r->error.empty() ? \"truncated BAM header\" :"
+     " r->error);\n"),
     ("guac_runtime.cpp",
      f"{_CHUNKS}: XLEN must not run past the chunk's buffer (read past "
      "it at :973)",
@@ -121,6 +279,110 @@ REPAIRS = (
     ("guac_runtime.cpp", f"{_CHUNKS}: ISIZE bound",
      "",
      "      if (isize > kBgzfMaxBlock) break;\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a block that does not inflate says why",
+     "      if (!ok.load()) {\n"
+     "        delete r;\n"
+     "        return nullptr;\n"
+     "      }\n",
+     "      if (!ok.load())\n"
+     "        return decode_failed(\"malformed BGZF block in chunk \" +\n"
+     "                             std::to_string(c));\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a refused record fails the decode (the parser's "
+     "return was ignored at :1039, the chunk cut short in silence)",
+     "    parse_bam_records(u, ustart, uend, r, rg_to_sample,"
+     " &default_sample,\n"
+     "                      threads);\n",
+     "    if (!parse_bam_records(u, ustart, uend, r.get(), rg_to_sample,\n"
+     "                           &default_sample, threads))\n"
+     "      return decode_failed(r->error);\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: the caller takes the handle",
+     "  return r;\n",
+     "  return r.release();\n"),
+    ("guac_runtime.cpp",
+     "guac_last_error: the reason of the last refusal on the calling thread, "
+     "for the bindings",
+     "",
+     "// Why the last guac_decode_bam, guac_decode_bam_chunks or"
+     " guac_decode_sam\n"
+     "// on the calling thread returned no handle (empty after a success).\n"
+     "const char* guac_last_error() { return g_last_error.c_str(); }\n"
+     "\n"),
+    ("guac_runtime.cpp",
+     "guac_decode_bam: a refusal says why; an exception is a refusal",
+     "  std::vector<uint8_t> raw;\n"
+     "  if (!read_file(path, &raw)) return nullptr;\n"
+     "  std::vector<uint8_t> uncompressed;\n"
+     "  if (!bgzf_decompress(raw, &uncompressed, threads)) return nullptr;\n"
+     "  Reads* r = new Reads();\n"
+     "  if (!parse_bam(uncompressed, r, threads)) {\n"
+     "    delete r;\n"
+     "    return nullptr;\n"
+     "  }\n"
+     "  return r;\n",
+     "  return guarded([&]() -> void* {\n"
+     "    std::vector<uint8_t> raw;\n"
+     "    if (!read_file(path, &raw)) return decode_failed(\"cannot read the"
+     " file\");\n"
+     "    std::vector<uint8_t> uncompressed;\n"
+     "    if (!bgzf_decompress(raw, &uncompressed, threads))\n"
+     "      return decode_failed(\"malformed BGZF block\");\n"
+     "    std::unique_ptr<Reads> r(new Reads());\n"
+     "    if (!parse_bam(uncompressed, r.get(), threads))\n"
+     "      return decode_failed(r->error);\n"
+     "    return r.release();\n"
+     "  });\n"),
+    ("guac_runtime.cpp",
+     "guac_decode_bam_chunks: an exception is a refusal",
+     "  return decode_bam_chunks(path, threads, n_chunks, vbeg, vend);\n",
+     "  return guarded([&]() -> void* {\n"
+     "    return decode_bam_chunks(path, threads, n_chunks, vbeg, vend);\n"
+     "  });\n"),
+    ("guac_runtime.cpp",
+     "guac_build_events: an exception returns no handle",
+     "  Reads* r = new Reads();\n"
+     "  fill_events_columns(n, start, mapq, seq_off, seq, qual, cigar_off,\n"
+     "                      cigar_len, cigar_op, md_off, md_text, ev_off,"
+     " threads,\n"
+     "                      ev_kind, ev_base, ev_qual, ev_mdref, mismatches,"
+     " r);\n"
+     "  return r;\n",
+     "  return guarded([&]() -> void* {\n"
+     "    std::unique_ptr<Reads> r(new Reads());\n"
+     "    fill_events_columns(n, start, mapq, seq_off, seq, qual, cigar_off,\n"
+     "                        cigar_len, cigar_op, md_off, md_text, ev_off,"
+     " threads,\n"
+     "                        ev_kind, ev_base, ev_qual, ev_mdref,"
+     " mismatches,\n"
+     "                        r.get());\n"
+     "    return r.release();\n"
+     "  });\n"),
+    ("guac_runtime.cpp",
+     "guac_decode_sam: a refusal says why (the SAM parser's messages were "
+     "dropped with the handle, :1516)",
+     "  std::vector<uint8_t> raw;\n"
+     "  if (!read_file(path, &raw)) return nullptr;\n"
+     "  size_t size = raw.size();\n"
+     "  raw.push_back(0);  // strtol guard for a truncated final line\n"
+     "  Reads* r = new Reads();\n"
+     "  if (!parse_sam_text(raw, size, r, threads)) {\n"
+     "    delete r;\n"
+     "    return nullptr;\n"
+     "  }\n"
+     "  return r;\n",
+     "  return guarded([&]() -> void* {\n"
+     "    std::vector<uint8_t> raw;\n"
+     "    if (!read_file(path, &raw)) return decode_failed(\"cannot read the"
+     " file\");\n"
+     "    size_t size = raw.size();\n"
+     "    raw.push_back(0);  // strtol guard for a truncated final line\n"
+     "    std::unique_ptr<Reads> r(new Reads());\n"
+     "    if (!parse_sam_text(raw, size, r.get(), threads))\n"
+     "      return decode_failed(r->error);\n"
+     "    return r.release();\n"
+     "  });\n"),
     ("guac_pack.cpp",
      f"{_PACK}: a row with a long key sorts and classifies its alleles "
      "under long_key_mu (another block's push_back moved long_keys under "
@@ -167,42 +429,15 @@ def test_copy_equals_native_outside_the_listed_repairs(name):
 _READ_BYTES = {0, 1, *range(10, 18)}
 
 
-def _compile(args):
-    return subprocess.run(args, capture_output=True, text=True, timeout=300)
-
-
-def _build(out, sanitizer, harness):
-    """(compiles, link) of one harness with the port's copy: one g++ per
-    source, then the link."""
-    flags = ["-O1", "-g", f"-fsanitize={sanitizer}", "-fno-omit-frame-pointer",
-             "-std=c++17"]
-    sources = [os.path.join(port_native.CSRC_DIR, n)
-               for n in port_native.SOURCES] + [harness]
-    objects = [str(out / f"{sanitizer}{i}.o") for i in range(len(sources))]
-    exe = str(out / f"{sanitizer}_{os.path.basename(harness)[:-4]}")
-    compiles = [["g++", *flags, "-c", src, "-o", obj]
-                for src, obj in zip(sources, objects)]
-    link = ["g++", f"-fsanitize={sanitizer}", *objects, "-o", exe,
-            "-lz", "-pthread", "-ldl"]
-    return compiles, link, exe
-
-
 @pytest.fixture(scope="module")
 def harnesses(tmp_path_factory):
     """The decode harness with -fsanitize=address and the pack harness with
     -fsanitize=thread, each built once with the port's copy: every g++ of
     both side by side, then the two links."""
-    out = tmp_path_factory.mktemp("sanitized")
-    builds = {"asan": _build(out, "address", HARNESS),
-              "tsan": _build(out, "thread", PACK_HARNESS)}
-    with ThreadPoolExecutor(6) as pool:
-        runs = list(pool.map(_compile, [
-            c for compiles, _, _ in builds.values() for c in compiles]))
-        runs += list(pool.map(_compile, [
-            link for _, link, _ in builds.values()]))
-    for run in runs:
-        assert run.returncode == 0, run.stderr[-4000:]
-    return {name: exe for name, (_, _, exe) in builds.items()}
+    exes = native_build.build(tmp_path_factory.mktemp("sanitized"), {
+        "address": native_build.DECODE_HARNESS,
+        "thread": native_build.PACK_HARNESS})
+    return {"asan": exes["address"], "tsan": exes["thread"]}
 
 
 @pytest.fixture(scope="module")
@@ -330,10 +565,8 @@ def test_copy_reads_no_byte_outside_its_buffers(
     )
     assert "AddressSanitizer" not in run.stderr, run.stderr[-6000:]
     assert run.returncode == 0, run.stderr[-6000:]
-    counts = {}
-    for line in run.stdout.splitlines():
-        path, *values = line.split()
-        counts[path] = [int(v) for v in values]
+    counts = {path: [n for n, _ in calls] for path, calls in
+              native_build.parse_decodes(run.stdout).items()}
     assert len(counts) == len(inputs)
     # Per input: the whole-file decoder, the whole-file chunk, each chunk
     # list, the SAM decoder.
@@ -369,28 +602,71 @@ def test_copy_reads_no_byte_outside_its_buffers(
 # --- the packer's threads under ThreadSanitizer ---------------------------
 
 
-@pytest.mark.parametrize("fixture", ["small", "fx"])
-def test_copy_packs_without_a_data_race(harnesses, request, fixture):
-    """The CSR pass of guac_pack_tile runs one thread per block of rows;
-    every thread interns the long keys of its insertions and deletions
-    into one table. A row that reads that table while another block grows
-    it read freed memory (the reference packer does, and it crashed the
-    germline-standard run on the card's host). Both germline BAMs at
-    scale 0.02 have such rows: the packer over each contig, twice, gives
-    no ThreadSanitizer report and the same screen flags each time."""
-    bam = request.getfixturevalue(fixture)["germline_bam"]
+# The dense modes pack windows of the dense route's smallest tile (4,096
+# loci; a full [L, D] tile of a whole deep contig is too large), the first
+# eight of each contig; the tumor screen's mode packs the tumor BAM.
+_DENSE_WINDOW = ("4096", "8")
+_WHOLE = ("0", "0")
+
+
+@pytest.mark.parametrize("fixture,sample,mode,window", [
+    pytest.param("small", "germline_bam", 1, _WHOLE, id="small"),
+    pytest.param("fx", "germline_bam", 1, _WHOLE, id="fx"),
+    pytest.param("small", "germline_bam", 0, _DENSE_WINDOW, id="full"),
+    pytest.param("small", "germline_bam", 2, _DENSE_WINDOW, id="likelihood"),
+    pytest.param("small", "tumor_bam", 3, _DENSE_WINDOW,
+                 id="likelihood_mapq"),
+])
+def test_copy_packs_without_a_data_race(
+        harnesses, request, fixture, sample, mode, window):
+    """The packer's passes run one thread per block of rows. In the CSR
+    pass (mode 1) every thread interns the long keys of its insertions and
+    deletions into one table; a row that reads that table while another
+    block grows it read freed memory (the reference packer does, and it
+    crashed the germline-standard run on the card's host). Both germline
+    BAMs at scale 0.02 have such rows: the packer over each contig, twice,
+    gives no ThreadSanitizer report and the same screen flags each time.
+    The full tiles of the dense route (mode 0) and the dense likelihood
+    tiles (mode 2, and mode 3 with the tumor's MAPQ plane) are held the
+    same way, in windows, on 16 threads."""
+    bam = request.getfixturevalue(fixture)[sample]
     run = subprocess.run(
-        [harnesses["tsan"], bam, "2"], capture_output=True, text=True,
-        timeout=300, env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
+        [harnesses["tsan"], bam, "2", str(mode), *window, "16"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
     )
     assert "ThreadSanitizer" not in run.stderr, run.stderr[-6000:]
     assert run.returncode == 0, run.stderr[-6000:]
     rows = {}
     for line in run.stdout.splitlines():
-        contig, n_rows, n_flags = line.split()
-        rows[contig] = (int(n_rows), int(n_flags))
-    assert set(rows) == {"deep1m", "shallow8m"}
-    assert all(n_flags > 0 for _, n_flags in rows.values()), rows
+        got_mode, contig, *numbers = line.split()
+        assert int(got_mode) == mode
+        rows[contig] = tuple(map(int, numbers))
+    contigs = {"deep1m"} if sample == "tumor_bam" else {"deep1m", "shallow8m"}
+    assert set(rows) == contigs
+    assert all(n_rows > 0 and checksum > 0
+               for n_rows, _, checksum, _ in rows.values()), rows
+    if mode == 1:
+        # One call per contig, and the screen flags rows on each.
+        assert all(n_windows == 1 and n_flags > 0
+                   for _, n_windows, _, n_flags in rows.values()), rows
+
+
+def test_copy_builds_events_without_a_data_race(harnesses, fx):
+    """guac_build_events, the event builder of reads that were not decoded
+    from a BAM (SAM and object inputs), over the germline BAM's decoded
+    columns on 16 threads, twice: no ThreadSanitizer report, and the event
+    arrays, mismatches and specials equal the decoder's own each time."""
+    run = subprocess.run(
+        [harnesses["tsan"], fx["germline_bam"], "2", "events", "16"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
+    )
+    assert "ThreadSanitizer" not in run.stderr, run.stderr[-6000:]
+    assert run.returncode == 0, run.stderr[-6000:]
+    word, n_reads, n_events, n_specials = run.stdout.split()
+    assert word == "events" and int(n_reads) == 84_296
+    assert int(n_events) > int(n_reads) and int(n_specials) > 0
 
 
 # --- the copy against the JAX package's library ---------------------------

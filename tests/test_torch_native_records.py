@@ -1,0 +1,224 @@
+"""The record parser of the port's native runtime on malformed records.
+
+parse_bam_records (runtime/csrc/guac_runtime.cpp) bounds every field of a
+record by its block before it uses it, and a decoder that refuses an input
+says why (guac_last_error). This file holds that:
+
+- every targeted mutant of tests/bam_mutants.py, made from the scale-0.02
+  fixture's normal and germline BAMs, through the decode harness built
+  with AddressSanitizer, in the whole-file decoder, the chunk decoder over
+  the whole file and over the .bai chunks of the last record's locus: no
+  sanitizer report, no abort, no handle, and a reason that names the
+  field; the one legal mutant (a CIGAR op of 2^28 - 1 bases) decodes;
+- where the port's object reader (gio/bam.py) raises on the same file, it
+  still does: the two readers of the port agree;
+- decode_bam_native raises ValueError naming the file and the field, and
+  `guacamole-torch germline-threshold --device cpu` fails with one line
+  and exit code 1, without reading the file again with the object reader;
+- 200 seeded byte and int32 mutations of the normal BAM's records: no
+  sanitizer report and no abort (a mutant may be accepted);
+- a failed build of the runtime says why, with the compiler's last lines.
+"""
+
+import os
+import struct
+import subprocess
+import sys
+
+import pytest
+
+import bam_mutants
+import native_build
+from guacamole_tpu_torch.gio.bai import (
+    BamIndex,
+    build_bam_index,
+    optimize_chunks,
+)
+from guacamole_tpu_torch.gio.bam import BamFile
+from guacamole_tpu_torch.runtime import native as port_native
+from guacamole_tpu_torch.utils.simulate import make_scale_fixture
+
+# The mutants inflate to under 2 MB; an accepted CIGAR op of 2^28 - 1
+# bases sizes each event array at 256 MiB. A larger allocation sized
+# itself from a corrupt field.
+_ASAN = "detect_leaks=0:max_allocation_size_mb=512"
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    """The decode harness with -fsanitize=address, built once with the
+    port's copy: one g++ per source side by side, then the link."""
+    return native_build.build(tmp_path_factory.mktemp("asan"), {
+        "address": native_build.DECODE_HARNESS})["address"]
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """The fixture at scale 0.02, depth 0.05, seed 7: a normal BAM of 250
+    reads in one data block, a germline BAM of 4,306 in 15."""
+    out = str(tmp_path_factory.mktemp("small"))
+    manifest = make_scale_fixture(out, scale=0.02, depth_scale=0.05, seed=7)
+    return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
+
+
+def _run(harness, chunk_lists, paths, tmp_path, name):
+    """{path: [(count, reason)]} of the harness over paths: the whole-file
+    decoder, the chunk decoder over [0, size << 16), over each chunk list,
+    and the SAM decoder."""
+    chunks_file = tmp_path / f"{name}.chunks"
+    chunks_file.write_text("".join(
+        " ".join(f"{b} {e}" for b, e in chunks) + "\n"
+        for chunks in chunk_lists))
+    run = subprocess.run(
+        [harness, str(chunks_file), *paths], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, ASAN_OPTIONS=_ASAN))
+    assert "AddressSanitizer" not in run.stderr, run.stderr[-6000:]
+    assert run.returncode == 0, run.stderr[-6000:]
+    out = native_build.parse_decodes(run.stdout)
+    assert sorted(out) == sorted(paths)
+    return out
+
+
+@pytest.fixture(scope="module")
+def targeted(small, harness, tmp_path_factory):
+    """Per sample: the clean BAM's decode, its mutants and their decodes
+    (whole file, whole-file chunk, the .bai chunks of the last record's
+    locus in the clean file, mapped onto the mutant)."""
+    out = {}
+    for sample in ("normal", "germline"):
+        tmp = tmp_path_factory.mktemp(sample)
+        clean = small[f"{sample}_bam"]
+        bam = bam_mutants.read_bam(clean)
+        bai = build_bam_index(clean, str(tmp / "clean.bai"))
+        raw = list(BamFile(clean).raw_records())[-1][0]
+        ref_id, pos = struct.unpack_from("<ii", raw, 0)
+        chunks = optimize_chunks(
+            [BamIndex(bai).chunks_for_region(ref_id, pos, pos + 1)])
+        paths = bam_mutants.write_mutants(clean, str(tmp))
+        decodes = _run(harness, [chunks], [clean], tmp, "clean")
+        for name, path in paths.items():
+            mapped = bam_mutants.chunks_of(bam, chunks, os.path.getsize(path))
+            decodes.update(_run(harness, [mapped], [path], tmp, name))
+        out[sample] = (clean, paths, decodes)
+    return out
+
+
+@pytest.mark.parametrize("sample", ["normal", "germline"])
+@pytest.mark.parametrize("mutant", bam_mutants.MUTANTS, ids=lambda m: m.name)
+def test_a_malformed_record_is_refused_with_its_field(
+        targeted, sample, mutant):
+    clean, paths, decodes = targeted[sample]
+    want = decodes[clean]
+    n_reads = want[0][0]
+    assert n_reads > 0 and [n for n, _ in want[:3]] == [n_reads] * 2 + [
+        want[2][0]] and want[2][0] > 0
+    got = decodes[paths[mutant.name]]
+    bam_calls, sam_call = got[:3], got[3]
+    assert sam_call[0] == -1  # a BAM is no SAM text
+    if mutant.field is None:
+        # A legal record: decoded as before, in every mode.
+        assert [n for n, _ in bam_calls] == [n for n, _ in want[:3]], got
+        return
+    for n, reason in bam_calls:
+        assert n == -1, got
+        assert mutant.field in reason, got
+        assert "malformed BAM record at inflated byte" in reason, got
+
+
+@pytest.mark.parametrize(
+    "mutant", [m for m in bam_mutants.MUTANTS if m.object_reader_raises],
+    ids=lambda m: m.name)
+def test_the_object_reader_refuses_the_same_records(targeted, mutant):
+    """gio/bam.py's reader raises on these mutants (struct.error,
+    IndexError): the native decoder now refuses them too."""
+    for sample in ("normal", "germline"):
+        path = targeted[sample][1][mutant.name]
+        with pytest.raises((struct.error, IndexError)):
+            list(BamFile(path).records())
+
+
+@pytest.mark.parametrize(
+    "mutant", [m for m in bam_mutants.MUTANTS if m.field is not None],
+    ids=lambda m: m.name)
+def test_decode_bam_native_raises_naming_file_and_field(targeted, mutant):
+    assert port_native.load_library() is not None
+    path = targeted["germline"][1][mutant.name]
+    with pytest.raises(ValueError) as refused:
+        port_native.decode_bam_native(path)
+    assert str(refused.value).startswith(f"{path}: ")
+    assert mutant.field in str(refused.value)
+
+
+@pytest.mark.parametrize("name", ["l_seq_2e24", "cigar_op_9"])
+def test_the_cli_fails_with_one_line(targeted, tmp_path, monkeypatch,
+                                     capsys, name):
+    """germline-threshold on a mutant: exit code 1 and one error line that
+    names the file and the field; the object reader never reads the file
+    (the JAX package's caller falls back to it where the native decoder
+    returns no handle)."""
+    from guacamole_tpu_torch import cli
+    from guacamole_tpu_torch.gio import load
+
+    def object_path(*_args, **_kwargs):
+        raise AssertionError("the object reader read the file")
+
+    monkeypatch.setattr(load, "load_read_set", object_path)
+    mutant = next(m for m in bam_mutants.MUTANTS if m.name == name)
+    path = targeted["normal"][1][name]
+    rc = cli.main(["germline-threshold", "--reads", path, "--threshold",
+                   "25", "--device", "cpu", "--out",
+                   str(tmp_path / "out.vcf")])
+    errors = [line for line in capsys.readouterr().err.splitlines()
+              if line.startswith("guacamole-torch germline-threshold: error")]
+    assert rc == 1
+    assert len(errors) == 1, errors
+    assert f"ValueError: {path}: " in errors[0] and mutant.field in errors[0]
+
+
+def test_random_record_mutations_read_no_byte_outside_the_record(
+        small, harness, tmp_path):
+    """200 seeded single-byte and int32 mutations in the normal BAM's
+    record area: whatever the decoders make of them, no sanitizer report
+    and no abort; a refusal always says why."""
+    mutants = bam_mutants.random_mutants(
+        small["normal_bam"], str(tmp_path), 200)
+    decodes = _run(harness, [], [p for p, _ in mutants], tmp_path, "fuzz")
+    refused = 0
+    for path, what in mutants:
+        calls = decodes[path]
+        assert len(calls) == 3, (what, calls)  # whole, whole chunk, SAM
+        for n, reason in calls:
+            assert n >= 0 or reason, (what, calls)
+        refused += calls[0][0] == -1
+    # Most mutations of a record's fixed fields and lengths are refused;
+    # one in a base or quality is not.
+    assert 0 < refused < len(mutants), refused
+
+
+def test_a_failed_build_says_why(tmp_path, monkeypatch, capsys):
+    """_try_build with a compiler that fails: False, no library, and one
+    progress message with the last 20 lines of its errors."""
+    compiler = tmp_path / "cxx"
+    compiler.write_text(
+        "#!/bin/sh\nfor i in $(seq 1 30); do echo \"error line $i\" >&2; "
+        "done\nexit 1\n")
+    compiler.chmod(0o755)
+    monkeypatch.setenv("CXX", str(compiler))
+    lib = tmp_path / "lib.so"
+    assert port_native._try_build(str(lib)) is False
+    assert not lib.exists()
+    err = capsys.readouterr().err
+    assert "did not build" in err and "CalledProcessError" in err
+    assert "error line 11\n" in err and "error line 30\n" in err
+    assert "error line 10\n" not in err
+    assert [f for f in os.listdir(tmp_path) if f.endswith(".tmp")] == []
+
+
+def test_every_refusal_says_why(harness, tmp_path):
+    """A file that is neither BGZF nor SAM text: every decoder refuses,
+    each with its reason."""
+    decodes = _run(harness, [], [sys.executable], tmp_path, "binary")
+    calls = decodes[sys.executable]
+    assert [n for n, _ in calls] == [-1, -1, -1]
+    assert calls[0][1] == "malformed BGZF block", calls
+    assert all(reason for _, reason in calls), calls
