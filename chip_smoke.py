@@ -117,7 +117,10 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     -fsanitize=address decodes every record mutant of tests/bam_mutants.py
     (made from the scale-0.02 fixture) whole, as one chunk and over its
     .bai chunks, each refused with a reason that names its field (the one
-    legal mutant decoded); any sanitizer report fails the run;
+    legal mutant decoded), every line mutant of tests/sam_mutants.py, each
+    refused naming its field and line, and the germline BAM cut in its
+    last data block, refused over its .bai chunks naming the chunk; any
+    sanitizer report fails the run;
 12. times all four kernels once more at the median launch of their main
     path in this run (each main-path run prints the shapes its kernels
     were launched at: min / median / max), back to back and with a cold
@@ -2338,16 +2341,19 @@ def run_native_slice(manifest, out) -> None:
     dense likelihood and likelihood + MAPQ modes over the scale-1.0
     fixture's windows under ThreadSanitizer, then every targeted record
     mutant of tests/bam_mutants.py (made from the scale-0.02 fixture)
-    through the three BAM decoders under AddressSanitizer. Any report
-    fails the run."""
+    through the three BAM decoders, every mutant of tests/sam_mutants.py
+    through the SAM decoder, and a BAM cut in its last data block over its
+    .bai chunks, under AddressSanitizer. Any report fails the run."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import bam_mutants
     import native_build
+    import sam_mutants
     from guacamole_tpu_torch.gio.bai import (
         BamIndex,
         build_bam_index,
         optimize_chunks,
     )
+    from guacamole_tpu_torch.gio.bam import BamFile
     from guacamole_tpu_torch.utils.simulate import make_scale_fixture
 
     work = os.path.join(out, "native")
@@ -2442,7 +2448,60 @@ def run_native_slice(manifest, out) -> None:
           f"and the chunk decoder over the file and over its .bai chunks, "
           f"under AddressSanitizer: {reports} reports, {refused} refused "
           f"naming their field, {accepted} accepted, "
-          f"{time.perf_counter() - t0:.3f} s; the phase "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    # The SAM mutants of both SAMs in one process, then the germline BAM
+    # cut in the middle of its last data block, over the clean file's
+    # .bai chunks of every contig.
+    t0 = time.perf_counter()
+    sams = []
+    for sample in ("normal", "germline"):
+        clean = os.path.join(work, "small", small["files"][sample])
+        for name, (path, line_no) in sam_mutants.write_mutants(
+                clean, work).items():
+            sams.append((name, path, line_no))
+    run = subprocess.run([exes["address"], os.devnull,
+                          *(p for _, p, _ in sams)],
+                         capture_output=True, text=True, timeout=300, env=env)
+    sam_reports = run.stderr.count("ERROR: AddressSanitizer")
+    check("AddressSanitizer" not in run.stderr and run.returncode == 0,
+          f"AddressSanitizer, SAM mutants: {run.stderr[-4000:]}")
+    decodes = native_build.parse_decodes(run.stdout)
+    fields = {m.name: m.field for m in sam_mutants.MUTANTS}
+    for name, path, line_no in sams:
+        n, reason = decodes[path][-1]
+        check(n == -1 and fields[name] in reason
+              and f" at line {line_no}: " in reason,
+              f"SAM mutant {name}: not refused by its field and line: "
+              f"{decodes[path]}")
+    clean = os.path.join(work, "small", small["files"]["germline_bam"])
+    bam = bam_mutants.read_bam(clean)
+    cut = os.path.join(work, "cut.bam")
+    with open(cut, "wb") as fh:
+        fh.write(bam_mutants.cut_in_last_data_block(bam))
+    index = BamIndex(os.path.join(work, "germline_bam.bai"))
+    every = optimize_chunks([
+        index.chunks_for_region(rid, 0, length)
+        for rid, (_, length) in enumerate(BamFile(clean).references)])
+    chunks_file = os.path.join(work, "cut.chunks")
+    with open(chunks_file, "w") as fh:
+        fh.write(" ".join(f"{b} {e}" for b, e in every) + "\n")
+    run = subprocess.run([exes["address"], chunks_file, cut],
+                         capture_output=True, text=True, timeout=300, env=env)
+    cut_reports = run.stderr.count("ERROR: AddressSanitizer")
+    check("AddressSanitizer" not in run.stderr and run.returncode == 0,
+          f"AddressSanitizer, cut BAM: {run.stderr[-4000:]}")
+    calls = native_build.parse_decodes(run.stdout)[cut][:3]
+    check(calls[0][0] == -1 and all(n == -1 and reason.startswith("chunk ")
+                                    for n, reason in calls[1:]),
+          f"the cut BAM was not refused naming its chunk: {calls}")
+    print(f"native: {len(sams)} SAM mutants of the scale-0.02 normal and "
+          f"germline SAMs through the SAM decoder under AddressSanitizer: "
+          f"{sam_reports} reports, {len(sams)} refused naming their field "
+          f"and line; the germline BAM cut in its last data block: "
+          f"{cut_reports} reports, refused by the whole-file decoder and "
+          f"by the chunk decoder over the file and over its .bai chunks, "
+          f"naming the chunk; {time.perf_counter() - t0:.3f} s; the phase "
           f"{time.perf_counter() - phase_t0:.3f} s in all", flush=True)
 
 

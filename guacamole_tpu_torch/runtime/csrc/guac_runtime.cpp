@@ -649,6 +649,21 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     memcpy(&next_ref, rec + 20, 4);
     memcpy(&next_pos, rec + 24, 4);
     memcpy(&tlen, rec + 28, 4);
+    // A reference id indexes the header's list, -1 for none; a position
+    // is 0-based, -1 for none.
+    const int32_t n_ref = (int32_t)r->ref_names.size();
+    if (ref_id < -1 || ref_id >= n_ref)
+      return reject(at, "ref_id " + std::to_string(ref_id) +
+                            " outside the header's " + std::to_string(n_ref) +
+                            " references");
+    if (next_ref < -1 || next_ref >= n_ref)
+      return reject(at, "next_ref " + std::to_string(next_ref) +
+                            " outside the header's " + std::to_string(n_ref) +
+                            " references");
+    if (pos0 < -1)
+      return reject(at, "pos " + std::to_string(pos0) + " below -1");
+    if (next_pos < -1)
+      return reject(at, "next_pos " + std::to_string(next_pos) + " below -1");
     uint8_t l_read_name = l_read_name_etc & 0xff;
     uint8_t mapq = (l_read_name_etc >> 8) & 0xff;
     uint16_t n_cigar = flag_nc & 0xffff;
@@ -1024,22 +1039,35 @@ static Reads* decode_bam_chunks(const char* path, int threads,
     size_t u1 = (uint64_t)vend[c] & 0xffff;
     u.clear();
     size_t uend = SIZE_MAX;  // local uoffset of the chunk end
+    // A chunk that cannot be walked is refused, naming it: a decode that
+    // kept the records before the fault would lose reads in silence.
+    auto refuse = [&](const std::string& why) {
+      return decode_failed("chunk " + std::to_string(c) + " [" +
+                           std::to_string(vbeg[c]) + ", " +
+                           std::to_string(vend[c]) + "): " + why);
+    };
     // Read the chunk's compressed range in ONE read — [c0, c1] plus two
     // max-size blocks of slack (the block containing the end voffset and
     // one more for a record overhanging vend) — then scan block headers
     // and inflate with the libdeflate thread pool. Replaces the serial
     // per-block fseek+zlib walk (the streaming path's decode was
     // single-threaded per task while the whole-file path pooled).
-    if ((size_t)c0 >= stream.fsize) continue;
+    if ((size_t)c0 >= stream.fsize)
+      return refuse("starts at compressed offset " + std::to_string(c0) +
+                    ", at or past the end of the file (" +
+                    std::to_string(stream.fsize) + " bytes)");
     size_t guess_end =
         std::min(stream.fsize, (size_t)c1 + 2 * 65536 + 28);
     if (guess_end <= (size_t)c0)
       guess_end = std::min(stream.fsize, (size_t)c0 + 2 * 65536 + 28);
     cbuf.resize(guess_end - (size_t)c0);
-    fseek(stream.f, (long)c0, SEEK_SET);
-    cbuf.resize(fread(cbuf.data(), 1, cbuf.size(), stream.f));
+    if (fseek(stream.f, (long)c0, SEEK_SET) != 0)
+      return refuse("cannot seek to compressed offset " + std::to_string(c0));
+    if (fread(cbuf.data(), 1, cbuf.size(), stream.f) != cbuf.size())
+      return refuse("cannot read " + std::to_string(cbuf.size()) +
+                    " bytes at compressed offset " + std::to_string(c0));
     std::vector<BgzfBlock> lbs;  // coffset local to cbuf
-    size_t loff = 0, uoff = 0;
+    size_t loff = 0, uoff = 0, end_isize = 0;
     bool have_end = false, slack_done = false;
     while (!(have_end && slack_done) && loff + 28 <= cbuf.size()) {
       if (cbuf[loff] != 0x1f || cbuf[loff + 1] != 0x8b ||
@@ -1073,12 +1101,10 @@ static Reads* decode_bam_chunks(const char* path, int threads,
         if (abs_off == (size_t)c1) {
           have_end = true;
           uend = uoff + u1;
+          end_isize = isize;
         } else if (abs_off > (size_t)c1) {
-          // End voffset fell between blocks (defensive): stop here.
-          have_end = true;
-          slack_done = true;
-          uend = uoff;
-          break;
+          return refuse("ends at compressed offset " + std::to_string(c1) +
+                        ", where no block starts");
         }
       } else {
         slack_done = true;  // the one slack block — include it
@@ -1087,6 +1113,21 @@ static Reads* decode_bam_chunks(const char* path, int threads,
       uoff += isize;
       loff += bsize;
     }
+    // The walk must reach the block at c1, or the end of the file (the EOF
+    // convention below); it stops before either only at a block header it
+    // cannot read: a cut or corrupt file, or a .bai of another file.
+    if (!have_end && (size_t)c0 + loff != stream.fsize)
+      return refuse("no readable block header at compressed offset " +
+                    std::to_string((size_t)c0 + loff) +
+                    ", before the chunk's end block at " + std::to_string(c1));
+    if (u0 > lbs[0].usize)
+      return refuse("starts at byte " + std::to_string(u0) +
+                    " of a block that inflates to " +
+                    std::to_string(lbs[0].usize));
+    if (have_end && u1 > end_isize)
+      return refuse("ends at byte " + std::to_string(u1) +
+                    " of a block that inflates to " +
+                    std::to_string(end_isize));
     u.resize(uoff);
     if (!lbs.empty()) {
       std::atomic<size_t> next_b(0);
@@ -1109,12 +1150,10 @@ static Reads* decode_bam_chunks(const char* path, int threads,
         for (int t = 0; t < nthreads; t++) pool.emplace_back(worker);
         for (auto& th : pool) th.join();
       }
-      if (!ok.load())
-        return decode_failed("malformed BGZF block in chunk " +
-                             std::to_string(c));
+      if (!ok.load()) return refuse("malformed BGZF block");
     }
-    // End voffset past the last data block (EOF convention): the chunk
-    // covers everything walked.
+    // End voffset past the last data block (EOF convention): the walk
+    // reached the end of the file, and the chunk covers everything walked.
     if (uend == SIZE_MAX) uend = u.size();
     uend = std::min(uend, u.size());
     size_t ustart = std::min(u0, u.size());
@@ -1122,7 +1161,7 @@ static Reads* decode_bam_chunks(const char* path, int threads,
     if (ustart >= uend) continue;
     if (!parse_bam_records(u, ustart, uend, r.get(), rg_to_sample,
                            &default_sample, threads))
-      return decode_failed(r->error);
+      return refuse(r->error);
   }
   return r.release();
 }
@@ -1328,6 +1367,49 @@ void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
   }
 }
 
+// [b, e) for a reason: printable ASCII, anything else as '?', at most 40
+// characters (a reason is one line of text, tab-free).
+static std::string shown(const char* b, const char* e) {
+  std::string out;
+  for (const char* p = b; p < e && out.size() < 40; p++)
+    out.push_back(*p >= ' ' && *p <= '~' ? *p : '?');
+  if (e - b > 40) out += "...";
+  return out;
+}
+
+// Reads the SAM field [b, e) whole as a decimal integer in [lo, hi]: an
+// optional sign, then one digit or more, nothing else. Otherwise false,
+// and *why names the field and what is wrong with it.
+static bool parse_sam_int(const char* b, const char* e, int64_t lo,
+                          int64_t hi, const char* name, int64_t* out,
+                          std::string* why) {
+  const char* p = b;
+  bool negative = false;
+  if (p < e && (*p == '-' || *p == '+')) negative = *p++ == '-';
+  bool digits = p < e, big = false;
+  int64_t v = 0;
+  for (; p < e && digits; p++) {
+    if (*p < '0' || *p > '9')
+      digits = false;
+    else if (v > (INT64_MAX - 9) / 10)
+      big = true;  // past every range; the digits are still checked
+    else
+      v = 10 * v + (*p - '0');
+  }
+  if (!digits) {
+    *why = std::string(name) + " \"" + shown(b, e) + "\" is not an integer";
+    return false;
+  }
+  if (negative) v = -v;
+  if (big || v < lo || v > hi) {
+    *why = std::string(name) + " " + shown(b, e) + " outside " +
+           std::to_string(lo) + "-" + std::to_string(hi);
+    return false;
+  }
+  *out = v;
+  return true;
+}
+
 // Parse SAM text into the same columnar Reads the BAM decoder produces
 // (header @SQ/@RG, records, then event arrays via fill_events_columns).
 // Mirrors gio/sam.py: seq/qual '*' handling, '='/unknown-contig rules,
@@ -1335,16 +1417,28 @@ void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
 // text must have a NUL terminator at data()[size] (strtol field parses
 // stop at '\t'/'\n' but must not run off the allocation on a truncated
 // final line).
+// Every numeric field is read whole and held to its range in the SAM spec
+// (SAMv1 1.4); a field that fails ends the parse, and r->error names the
+// field and its 1-based line.
 bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
                     int threads) {
   const char* p = reinterpret_cast<const char*>(text.data());
   const char* end = p + size;
+  const int64_t kPosMax = INT32_MAX;  // positions are int32 in the spec
+  int64_t line_no = 0;
+  auto reject = [&](const char* what, const std::string& why) {
+    r->error = std::string("malformed SAM ") + what + " at line " +
+               std::to_string(line_no) + ": " + why;
+    return false;
+  };
+  std::string why;
 
   // ---- header ----
   std::map<std::string, int> ref_index;
   const char* body = p;
   std::string header_text;
   while (body < end && *body == '@') {
+    line_no++;
     const char* eol = static_cast<const char*>(
         memchr(body, '\n', (size_t)(end - body)));
     const char* line_end = eol ? eol : end;
@@ -1360,8 +1454,12 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
         const char* fend = ftab ? ftab : line_end;
         if (fend - f > 3 && memcmp(f, "SN:", 3) == 0) {
           name.assign(f + 3, (size_t)(fend - f - 3));
-        } else if (fend - f > 3 && memcmp(f, "LN:", 3) == 0) {
-          len = strtoll(f + 3, nullptr, 10);
+        } else if (fend - f >= 3 && memcmp(f, "LN:", 3) == 0) {
+          // The line's CR, where it ends in CRLF, is no part of LN.
+          const char* lend = fend;
+          if (lend == line_end && lend[-1] == '\r') lend--;
+          if (!parse_sam_int(f + 3, lend, 1, kPosMax, "@SQ LN", &len, &why))
+            return reject("header", why);
         }
         f = fend + 1;
       }
@@ -1391,6 +1489,7 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
   for (int i = 0; ops[i]; i++) op_code[(uint8_t)ops[i]] = (uint8_t)i;
 
   while (body < end) {
+    line_no++;
     const char* eol = static_cast<const char*>(
         memchr(body, '\n', (size_t)(end - body)));
     const char* line_end = eol ? eol : end;
@@ -1413,14 +1512,13 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       nf++;
       if (!tab) break;
     }
-    if (nf < 11) {
-      r->error = "malformed SAM record (fewer than 11 fields)";
-      return false;
-    }
+    if (nf < 11) return reject("record", "fewer than 11 fields");
 
-    int flag = (int)strtol(f[1], nullptr, 10);
-    int64_t pos = strtoll(f[3], nullptr, 10);
-    int mapq = (int)strtol(f[4], nullptr, 10);
+    int64_t flag, pos, mapq;
+    if (!parse_sam_int(f[1], fe[1], 0, 0xFFFF, "FLAG", &flag, &why) ||
+        !parse_sam_int(f[3], fe[3], 0, kPosMax, "POS", &pos, &why) ||
+        !parse_sam_int(f[4], fe[4], 0, 255, "MAPQ", &mapq, &why))
+      return reject("record", why);
 
     // reference id: '*' or pos<=0 -> unmapped (-1); unknown contigs are
     // appended with length 0 (gio/sam.py keeps such reads mapped)
@@ -1446,22 +1544,15 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       while (c < fe[5]) {
         char* after = nullptr;
         long len = strtol(c, &after, 10);
-        if (after == c || after >= fe[5]) {
-          r->error = "malformed CIGAR";
-          return false;
-        }
+        if (after == c || after >= fe[5])
+          return reject("record", "malformed CIGAR");
         // BAM stores op lengths in 28 bits; reject negatives ('-5M') and
         // overflow here so a hostile length can never become a negative
         // event span (which downstream code casts to size_t).
-        if (len < 0 || len > 0xFFFFFFFL) {
-          r->error = "CIGAR op length out of range";
-          return false;
-        }
+        if (len < 0 || len > 0xFFFFFFFL)
+          return reject("record", "CIGAR op length out of range");
         uint8_t op = op_code[(uint8_t)*after];
-        if (op == 0xff) {
-          r->error = "malformed CIGAR op";
-          return false;
-        }
+        if (op == 0xff) return reject("record", "malformed CIGAR op");
         r->cigar_len.push_back((uint32_t)len);
         r->cigar_op.push_back(op);
         if (OP_CONSUMES_REF[op] || op == OP_P) span += len;
@@ -1469,6 +1560,12 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
         c = after + 1;
       }
     }
+    // Positions are int32 in the spec; a larger end would size the event
+    // arrays past any memory (the BAM parser's bound, for unplaced reads
+    // too).
+    if (std::max<int64_t>(pos - 1, 0) + span > kPosMax)
+      return reject("record", "POS " + std::to_string(pos) + " + CIGAR span " +
+                                  std::to_string(span) + " past 2^31 - 1");
 
     // mate fields
     int mate_ref = -1;
@@ -1478,8 +1575,10 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       auto it = ref_index.find(std::string(f[6], (size_t)(fe[6] - f[6])));
       if (it != ref_index.end()) mate_ref = it->second;
     }
-    int64_t pnext = strtoll(f[7], nullptr, 10);
-    int32_t tlen = (int32_t)strtol(f[8], nullptr, 10);
+    int64_t pnext, tlen;
+    if (!parse_sam_int(f[7], fe[7], 0, kPosMax, "PNEXT", &pnext, &why) ||
+        !parse_sam_int(f[8], fe[8], -kPosMax, kPosMax, "TLEN", &tlen, &why))
+      return reject("record", why);
 
     // seq / qual ('*' -> empty / zeros)
     int64_t l_seq = 0;
@@ -1489,17 +1588,14 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       if (fe[10] - f[10] == 1 && *f[10] == '*') {
         r->qual.insert(r->qual.end(), (size_t)l_seq, 0);
       } else {
-        if (fe[10] - f[10] != l_seq) {
-          r->error = "QUAL length != SEQ length";
-          return false;
-        }
+        if (fe[10] - f[10] != l_seq)
+          return reject("record", "QUAL length != SEQ length");
         for (const char* qq = f[10]; qq < fe[10]; qq++) {
           // Phred+33: anything below '!' is corrupt input; a silent
           // uint8 wrap would fabricate a huge base quality.
-          if ((uint8_t)*qq < 33) {
-            r->error = "QUAL character below '!' (corrupt quality string)";
-            return false;
-          }
+          if ((uint8_t)*qq < 33)
+            return reject("record",
+                          "QUAL character below '!' (corrupt quality string)");
           r->qual.push_back((uint8_t)(*qq - 33));
         }
       }

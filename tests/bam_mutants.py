@@ -28,13 +28,13 @@ from guacamole_tpu_torch.gio.bgzf import (
 INT32_MAX = (1 << 31) - 1
 _BLOCK = 0xFF00  # inflated bytes per block written, as BgzfWriter does
 # Offsets of the fixed fields in a record, counted from its block_size.
-_POS, _L_READ_NAME, _N_CIGAR, _L_SEQ = 8, 12, 16, 20
+_REF_ID, _POS, _L_READ_NAME, _N_CIGAR, _L_SEQ, _NEXT_REF = 4, 8, 12, 16, 20, 24
 
 
 class Bam(NamedTuple):
     """A BAM taken apart: its compressed blocks, the inflated stream, the
-    inflated offset of each block, where the records start and where each
-    record starts."""
+    inflated offset of each block, where the records start, where each
+    record starts, and the header's reference count."""
 
     data: bytes
     coffsets: List[int]
@@ -42,6 +42,7 @@ class Bam(NamedTuple):
     stream: bytes
     header_end: int
     records: List[int]
+    n_ref: int
 
 
 def read_bam(path: str) -> Bam:
@@ -67,7 +68,7 @@ def read_bam(path: str) -> Bam:
     while pos < len(stream):
         records.append(pos)
         pos += 4 + struct.unpack_from("<i", stream, pos)[0]
-    return Bam(data, coffsets, ustarts, stream, header_end, records)
+    return Bam(data, coffsets, ustarts, stream, header_end, records, n_ref)
 
 
 def compress(stream: bytes) -> bytes:
@@ -100,9 +101,19 @@ def chunks_of(bam: Bam, chunks, mutant_size: int):
             for b, e in chunks]
 
 
-def _set(fmt: str, at: int, value) -> Callable[[bytearray], None]:
-    def edit(rec: bytearray) -> None:
-        struct.pack_into(fmt, rec, at, value)
+def cut_in_last_data_block(bam: Bam) -> bytes:
+    """The file cut in the middle of its last block that holds records:
+    the blocks before it whole, then half of its compressed bytes."""
+    k = max(i for i, u in enumerate(bam.ustarts) if u < len(bam.stream))
+    end = bam.coffsets[k + 1] if k + 1 < len(bam.coffsets) else len(bam.data)
+    return bam.data[:(bam.coffsets[k] + end) // 2]
+
+
+def _set(fmt: str, at: int, value) -> Callable[[bytearray, Bam], None]:
+    """Writes value, or value(bam) where it is a function of the BAM."""
+    def edit(rec: bytearray, bam: Bam) -> None:
+        struct.pack_into(fmt, rec, at,
+                         value(bam) if callable(value) else value)
     return edit
 
 
@@ -111,7 +122,7 @@ def _cigar_at(rec: bytes) -> int:
 
 
 def _first_op(length: int, op: int, pos: Optional[int] = None):
-    def edit(rec: bytearray) -> None:
+    def edit(rec: bytearray, _bam: Bam) -> None:
         struct.pack_into("<I", rec, _cigar_at(rec), (length << 4) | op)
         if pos is not None:
             struct.pack_into("<i", rec, _POS, pos)
@@ -121,7 +132,7 @@ def _first_op(length: int, op: int, pos: Optional[int] = None):
 def _long_ops(count: int, pos: int):
     """The first CIGAR op becomes count ops of 2^28 - 1 M at pos: n_cigar
     and block_size grow with the ops inserted."""
-    def edit(rec: bytearray) -> None:
+    def edit(rec: bytearray, _bam: Bam) -> None:
         at = _cigar_at(rec)
         word = struct.pack("<I", (((1 << 28) - 1) << 4) | 0)
         rec[at:at + 4] = word * count
@@ -133,7 +144,7 @@ def _long_ops(count: int, pos: int):
 
 
 def _op_code(code: int):
-    def edit(rec: bytearray) -> None:
+    def edit(rec: bytearray, _bam: Bam) -> None:
         at = _cigar_at(rec)
         (word,) = struct.unpack_from("<I", rec, at)
         struct.pack_into("<I", rec, at, (word & ~0xF) | code)
@@ -141,19 +152,19 @@ def _op_code(code: int):
 
 
 def _append(tail: bytes):
-    def edit(rec: bytearray) -> None:
+    def edit(rec: bytearray, _bam: Bam) -> None:
         rec.extend(tail)
         struct.pack_into("<i", rec, 0, len(rec) - 4)
     return edit
 
 
-def _cut(rec: bytearray) -> None:
+def _cut(rec: bytearray, _bam: Bam) -> None:
     del rec[len(rec) // 2:]
 
 
 class Mutant(NamedTuple):
     name: str
-    edit: Callable[[bytearray], None]  # rewrites the record in place
+    edit: Callable[[bytearray, Bam], None]  # rewrites the record in place
     field: Optional[str]  # what the refusal must name; None: accepted
     object_reader_raises: bool  # gio/bam.py BamFile.records() raises too
 
@@ -187,13 +198,22 @@ MUTANTS = (
     # An unmapped record (pos -1) whose nine ops of 2^28 - 1 bases span
     # more than 2^31 - 1: the span alone sizes its event arrays.
     Mutant("span_unmapped", _long_ops(9, -1), "span", False),
+    # Reference ids past the header's list or below -1, and a position
+    # below -1. The object reader maps such an id to '*' (and a position
+    # of -2 makes the read unmapped) where the decoders refuse them.
+    Mutant("ref_id_past_header", _set("<i", _REF_ID, lambda bam: bam.n_ref),
+           "ref_id", False),
+    Mutant("ref_id_minus_2", _set("<i", _REF_ID, -2), "ref_id", False),
+    Mutant("next_ref_past_header",
+           _set("<i", _NEXT_REF, lambda bam: bam.n_ref), "next_ref", False),
+    Mutant("pos_minus_2", _set("<i", _POS, -2), "pos", False),
 )
 
 
 def make_mutant(bam: Bam, mutant: Mutant) -> bytes:
     start = bam.records[-1]
     rec = bytearray(bam.stream[start:])
-    mutant.edit(rec)
+    mutant.edit(rec, bam)
     return rewrite_last(bam, bam.stream[:start] + bytes(rec))
 
 

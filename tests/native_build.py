@@ -6,8 +6,9 @@ is linked with the port's own sources (guacamole_tpu_torch/runtime/csrc/),
 all compiled with one sanitizer: one g++ per source, the sources of every
 harness at once, then the links.
 
-Used by tests/test_torch_native.py, tests/test_torch_native_records.py and
-chip_smoke.py's `native` phase; it imports nothing of JAX.
+Used by tests/test_torch_native.py, tests/test_torch_native_records.py,
+tests/test_torch_native_sam.py and chip_smoke.py's `native` phase; it
+imports nothing of JAX.
 """
 
 from __future__ import annotations

@@ -52,9 +52,10 @@ PORT_PKG = os.path.join(ROOT, "guacamole_tpu_torch")
 
 # The copy's departures from native/*.cpp: (file, reason, the original's
 # lines, the copy's lines), in file order. Each BGZF header walk is bounded
-# by its buffer; where a check fails the walk takes the path that already
-# handles malformed input (return false / break). On well-formed input
-# none of the checks fails, so the outputs are the original's. The packer
+# by its buffer, each field of a BAM or SAM record by its block and by its
+# range in the spec, and a .bai chunk that cannot be walked to its end is
+# refused; every refusal says why. On well-formed input none of the checks
+# fails, so the outputs are the original's. The packer
 # reads its table of long allele keys under the lock its writers hold,
 # which orders the same reads. A later change to the copy adds its hunks
 # here, each with its reason.
@@ -62,6 +63,7 @@ _SCAN = "scan_bgzf_blocks"
 _AT = "BgzfStream::inflate_at"
 _CHUNKS = "decode_bam_chunks"
 _PARSE = "parse_bam_records"
+_SAM = "parse_sam_text"
 _PACK = "guac_pack_tile, the CSR pass"
 REPAIRS = (
     ("guac_runtime.cpp",
@@ -169,6 +171,33 @@ REPAIRS = (
      "      return reject(at, \"block_size \" + std::to_string(block_size) +\n"
      "                            \" past the end of the data\");\n"),
     ("guac_runtime.cpp",
+     f"{_PARSE}: ref_id and next_ref must be -1 or index the header's "
+     "references, pos and next_pos at least -1 (an id past the header "
+     "stayed in the columns, :673 and :678: is_mapped_mask counted the "
+     "read mapped and to_read raised IndexError, where gio/bam.py maps "
+     "the id to '*')",
+     "",
+     "    // A reference id indexes the header's list, -1 for none; a"
+     " position\n"
+     "    // is 0-based, -1 for none.\n"
+     "    const int32_t n_ref = (int32_t)r->ref_names.size();\n"
+     "    if (ref_id < -1 || ref_id >= n_ref)\n"
+     "      return reject(at, \"ref_id \" + std::to_string(ref_id) +\n"
+     "                            \" outside the header's \" +"
+     " std::to_string(n_ref) +\n"
+     "                            \" references\");\n"
+     "    if (next_ref < -1 || next_ref >= n_ref)\n"
+     "      return reject(at, \"next_ref \" + std::to_string(next_ref) +\n"
+     "                            \" outside the header's \" +"
+     " std::to_string(n_ref) +\n"
+     "                            \" references\");\n"
+     "    if (pos0 < -1)\n"
+     "      return reject(at, \"pos \" + std::to_string(pos0) + \" below"
+     " -1\");\n"
+     "    if (next_pos < -1)\n"
+     "      return reject(at, \"next_pos \" + std::to_string(next_pos) + \""
+     " below -1\");\n"),
+    ("guac_runtime.cpp",
      f"{_PARSE}: l_seq >= 0, and l_read_name, n_cigar and l_seq must fit "
      "block_size (phase 2 read past the heap buffer, :744-761)",
      "",
@@ -259,6 +288,44 @@ REPAIRS = (
      "    return decode_failed(r->error.empty() ? \"truncated BAM header\" :"
      " r->error);\n"),
     ("guac_runtime.cpp",
+     f"{_CHUNKS}: a chunk that cannot be walked is refused, naming its "
+     "index and its two virtual offsets",
+     "",
+     "    // A chunk that cannot be walked is refused, naming it: a"
+     " decode that\n"
+     "    // kept the records before the fault would lose reads in silence.\n"
+     "    auto refuse = [&](const std::string& why) {\n"
+     "      return decode_failed(\"chunk \" + std::to_string(c) + \" [\" +\n"
+     "                           std::to_string(vbeg[c]) + \", \" +\n"
+     "                           std::to_string(vend[c]) + \"): \" + why);\n"
+     "    };\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: a chunk that starts at or past the end of the file is "
+     "refused (it was skipped at :954, its reads lost with exit code 0)",
+     "    if ((size_t)c0 >= stream.fsize) continue;\n",
+     "    if ((size_t)c0 >= stream.fsize)\n"
+     "      return refuse(\"starts at compressed offset \" +"
+     " std::to_string(c0) +\n"
+     "                    \", at or past the end of the file (\" +\n"
+     "                    std::to_string(stream.fsize) + \" bytes)\");\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: a failed fseek or a short fread is refused (neither was "
+     "checked, :960-961)",
+     "    fseek(stream.f, (long)c0, SEEK_SET);\n"
+     "    cbuf.resize(fread(cbuf.data(), 1, cbuf.size(), stream.f));\n",
+     "    if (fseek(stream.f, (long)c0, SEEK_SET) != 0)\n"
+     "      return refuse(\"cannot seek to compressed offset \" +"
+     " std::to_string(c0));\n"
+     "    if (fread(cbuf.data(), 1, cbuf.size(), stream.f) != cbuf.size())\n"
+     "      return refuse(\"cannot read \" + std::to_string(cbuf.size()) +\n"
+     "                    \" bytes at compressed offset \" +"
+     " std::to_string(c0));\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: the inflated size of the chunk's end block, which bounds "
+     "its end offset",
+     "    size_t loff = 0, uoff = 0;\n",
+     "    size_t loff = 0, uoff = 0, end_isize = 0;\n"),
+    ("guac_runtime.cpp",
      f"{_CHUNKS}: XLEN must not run past the chunk's buffer (read past "
      "it at :973)",
      "",
@@ -280,23 +347,74 @@ REPAIRS = (
      "",
      "      if (isize > kBgzfMaxBlock) break;\n"),
     ("guac_runtime.cpp",
-     "decode_bam_chunks: a block that does not inflate says why",
+     f"{_CHUNKS}: the end block's inflated size",
+     "",
+     "          end_isize = isize;\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: an end offset inside a block is refused (the chunk was "
+     "cut at the block before it, :992-996)",
+     "          // End voffset fell between blocks (defensive): stop here.\n"
+     "          have_end = true;\n"
+     "          slack_done = true;\n"
+     "          uend = uoff;\n"
+     "          break;\n",
+     "          return refuse(\"ends at compressed offset \" +"
+     " std::to_string(c1) +\n"
+     "                        \", where no block starts\");\n"),
+    ("guac_runtime.cpp",
+     f"{_CHUNKS}: a walk that stops at a block header it cannot read, "
+     "before the chunk's end block and short of the end of the file, is "
+     "refused (the chunk kept the blocks before it, :966-983, 1034: a BAM "
+     "cut inside a block, or the .bai of another file, lost reads with "
+     "exit code 0); a start or end offset past its block's inflated "
+     "data is refused (clamped at :1035-1036)",
+     "",
+     "    // The walk must reach the block at c1, or the end of the file"
+     " (the EOF\n"
+     "    // convention below); it stops before either only at a block"
+     " header it\n"
+     "    // cannot read: a cut or corrupt file, or a .bai of another file.\n"
+     "    if (!have_end && (size_t)c0 + loff != stream.fsize)\n"
+     "      return refuse(\"no readable block header at compressed offset"
+     " \" +\n"
+     "                    std::to_string((size_t)c0 + loff) +\n"
+     "                    \", before the chunk's end block at \" +"
+     " std::to_string(c1));\n"
+     "    if (u0 > lbs[0].usize)\n"
+     "      return refuse(\"starts at byte \" + std::to_string(u0) +\n"
+     "                    \" of a block that inflates to \" +\n"
+     "                    std::to_string(lbs[0].usize));\n"
+     "    if (have_end && u1 > end_isize)\n"
+     "      return refuse(\"ends at byte \" + std::to_string(u1) +\n"
+     "                    \" of a block that inflates to \" +\n"
+     "                    std::to_string(end_isize));\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a block that does not inflate says why, naming the "
+     "chunk",
      "      if (!ok.load()) {\n"
      "        delete r;\n"
      "        return nullptr;\n"
      "      }\n",
-     "      if (!ok.load())\n"
-     "        return decode_failed(\"malformed BGZF block in chunk \" +\n"
-     "                             std::to_string(c));\n"),
+     "      if (!ok.load()) return refuse(\"malformed BGZF block\");\n"),
     ("guac_runtime.cpp",
-     "decode_bam_chunks: a refused record fails the decode (the parser's "
-     "return was ignored at :1039, the chunk cut short in silence)",
+     f"{_CHUNKS}: the EOF convention holds only for a walk that reached "
+     "the end of the file",
+     "    // End voffset past the last data block (EOF convention): the"
+     " chunk\n"
+     "    // covers everything walked.\n",
+     "    // End voffset past the last data block (EOF convention): the walk\n"
+     "    // reached the end of the file, and the chunk covers everything"
+     " walked.\n"),
+    ("guac_runtime.cpp",
+     "decode_bam_chunks: a refused record fails the decode, naming the "
+     "chunk (the parser's return was ignored at :1039, the chunk cut "
+     "short in silence)",
      "    parse_bam_records(u, ustart, uend, r, rg_to_sample,"
      " &default_sample,\n"
      "                      threads);\n",
      "    if (!parse_bam_records(u, ustart, uend, r.get(), rg_to_sample,\n"
      "                           &default_sample, threads))\n"
-     "      return decode_failed(r->error);\n"),
+     "      return refuse(r->error);\n"),
     ("guac_runtime.cpp",
      "decode_bam_chunks: the caller takes the handle",
      "  return r;\n",
@@ -340,6 +458,191 @@ REPAIRS = (
      "  return guarded([&]() -> void* {\n"
      "    return decode_bam_chunks(path, threads, n_chunks, vbeg, vend);\n"
      "  });\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: shown and parse_sam_int read a numeric field whole and hold "
+     "it to its range (strtol read '12abc' as 12 and 'abc' as 0, and "
+     "nothing bounded the values); a reason shows the field printable",
+     "",
+     "// [b, e) for a reason: printable ASCII, anything else as '?', at"
+     " most 40\n"
+     "// characters (a reason is one line of text, tab-free).\n"
+     "static std::string shown(const char* b, const char* e) {\n"
+     "  std::string out;\n"
+     "  for (const char* p = b; p < e && out.size() < 40; p++)\n"
+     "    out.push_back(*p >= ' ' && *p <= '~' ? *p : '?');\n"
+     "  if (e - b > 40) out += \"...\";\n"
+     "  return out;\n"
+     "}\n"
+     "\n"
+     "// Reads the SAM field [b, e) whole as a decimal integer in [lo,"
+     " hi]: an\n"
+     "// optional sign, then one digit or more, nothing else. Otherwise"
+     " false,\n"
+     "// and *why names the field and what is wrong with it.\n"
+     "static bool parse_sam_int(const char* b, const char* e, int64_t lo,\n"
+     "                          int64_t hi, const char* name, int64_t* out,\n"
+     "                          std::string* why) {\n"
+     "  const char* p = b;\n"
+     "  bool negative = false;\n"
+     "  if (p < e && (*p == '-' || *p == '+')) negative = *p++ == '-';\n"
+     "  bool digits = p < e, big = false;\n"
+     "  int64_t v = 0;\n"
+     "  for (; p < e && digits; p++) {\n"
+     "    if (*p < '0' || *p > '9')\n"
+     "      digits = false;\n"
+     "    else if (v > (INT64_MAX - 9) / 10)\n"
+     "      big = true;  // past every range; the digits are still checked\n"
+     "    else\n"
+     "      v = 10 * v + (*p - '0');\n"
+     "  }\n"
+     "  if (!digits) {\n"
+     "    *why = std::string(name) + \" \\\"\" + shown(b, e) + \"\\\" is not an"
+     " integer\";\n"
+     "    return false;\n"
+     "  }\n"
+     "  if (negative) v = -v;\n"
+     "  if (big || v < lo || v > hi) {\n"
+     "    *why = std::string(name) + \" \" + shown(b, e) + \" outside \" +\n"
+     "           std::to_string(lo) + \"-\" + std::to_string(hi);\n"
+     "    return false;\n"
+     "  }\n"
+     "  *out = v;\n"
+     "  return true;\n"
+     "}\n"
+     "\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: what it checks",
+     "",
+     "// Every numeric field is read whole and held to its range in the"
+     " SAM spec\n"
+     "// (SAMv1 1.4); a field that fails ends the parse, and r->error"
+     " names the\n"
+     "// field and its 1-based line.\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a refusal names the field and its 1-based line",
+     "",
+     "  const int64_t kPosMax = INT32_MAX;  // positions are int32 in the"
+     " spec\n"
+     "  int64_t line_no = 0;\n"
+     "  auto reject = [&](const char* what, const std::string& why) {\n"
+     "    r->error = std::string(\"malformed SAM \") + what + \" at line \""
+     " +\n"
+     "               std::to_string(line_no) + \": \" + why;\n"
+     "    return false;\n"
+     "  };\n"
+     "  std::string why;\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: header lines are counted",
+     "",
+     "    line_no++;\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: @SQ LN read whole, in [1, 2^31 - 1], without the CR of a "
+     "CRLF line (strtoll read 'abc' as 0, :1272; an empty LN: was "
+     "skipped)",
+     "        } else if (fend - f > 3 && memcmp(f, \"LN:\", 3) == 0) {\n"
+     "          len = strtoll(f + 3, nullptr, 10);\n",
+     "        } else if (fend - f >= 3 && memcmp(f, \"LN:\", 3) == 0) {\n"
+     "          // The line's CR, where it ends in CRLF, is no part of LN.\n"
+     "          const char* lend = fend;\n"
+     "          if (lend == line_end && lend[-1] == '\\r') lend--;\n"
+     "          if (!parse_sam_int(f + 3, lend, 1, kPosMax, \"@SQ LN\","
+     " &len, &why))\n"
+     "            return reject(\"header\", why);\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: record lines are counted",
+     "",
+     "    line_no++;\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: the field count refusal names its line",
+     "    if (nf < 11) {\n"
+     "      r->error = \"malformed SAM record (fewer than 11 fields)\";\n"
+     "      return false;\n"
+     "    }\n",
+     "    if (nf < 11) return reject(\"record\", \"fewer than 11 fields\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: FLAG in [0, 2^16 - 1], POS in [0, 2^31 - 1], MAPQ in [0, "
+     "255], each read whole (:1329-1331: FLAG was cast to uint16 at "
+     ":1451, a MAPQ of 300 became 44 in the events at :1180, a POS of "
+     "'abc' made the read unmapped at :1337)",
+     "    int flag = (int)strtol(f[1], nullptr, 10);\n"
+     "    int64_t pos = strtoll(f[3], nullptr, 10);\n"
+     "    int mapq = (int)strtol(f[4], nullptr, 10);\n",
+     "    int64_t flag, pos, mapq;\n"
+     "    if (!parse_sam_int(f[1], fe[1], 0, 0xFFFF, \"FLAG\", &flag, &why)"
+     " ||\n"
+     "        !parse_sam_int(f[3], fe[3], 0, kPosMax, \"POS\", &pos, &why)"
+     " ||\n"
+     "        !parse_sam_int(f[4], fe[4], 0, 255, \"MAPQ\", &mapq, &why))\n"
+     "      return reject(\"record\", why);\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a CIGAR refusal names its line",
+     "        if (after == c || after >= fe[5]) {\n"
+     "          r->error = \"malformed CIGAR\";\n"
+     "          return false;\n"
+     "        }\n",
+     "        if (after == c || after >= fe[5])\n"
+     "          return reject(\"record\", \"malformed CIGAR\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a CIGAR refusal names its line",
+     "        if (len < 0 || len > 0xFFFFFFFL) {\n"
+     "          r->error = \"CIGAR op length out of range\";\n"
+     "          return false;\n"
+     "        }\n",
+     "        if (len < 0 || len > 0xFFFFFFFL)\n"
+     "          return reject(\"record\", \"CIGAR op length out of range\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a CIGAR refusal names its line",
+     "        if (op == 0xff) {\n"
+     "          r->error = \"malformed CIGAR op\";\n"
+     "          return false;\n"
+     "        }\n",
+     "        if (op == 0xff) return reject(\"record\", \"malformed CIGAR"
+     " op\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: max(POS - 1, 0) + CIGAR span bounded by 2^31 - 1, as in the "
+     "BAM parser (ten ops of 2^28 - 1 bases sized the event arrays at "
+     "2.7 GB, :1466)",
+     "",
+     "    // Positions are int32 in the spec; a larger end would size the"
+     " event\n"
+     "    // arrays past any memory (the BAM parser's bound, for unplaced"
+     " reads\n"
+     "    // too).\n"
+     "    if (std::max<int64_t>(pos - 1, 0) + span > kPosMax)\n"
+     "      return reject(\"record\", \"POS \" + std::to_string(pos) + \" +"
+     " CIGAR span \" +\n"
+     "                                  std::to_string(span) + \" past"
+     " 2^31 - 1\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: PNEXT in [0, 2^31 - 1] and TLEN in [-2^31 + 1, 2^31 - 1], "
+     "each read whole (:1389-1390)",
+     "    int64_t pnext = strtoll(f[7], nullptr, 10);\n"
+     "    int32_t tlen = (int32_t)strtol(f[8], nullptr, 10);\n",
+     "    int64_t pnext, tlen;\n"
+     "    if (!parse_sam_int(f[7], fe[7], 0, kPosMax, \"PNEXT\", &pnext,"
+     " &why) ||\n"
+     "        !parse_sam_int(f[8], fe[8], -kPosMax, kPosMax, \"TLEN\","
+     " &tlen, &why))\n"
+     "      return reject(\"record\", why);\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a QUAL refusal names its line",
+     "        if (fe[10] - f[10] != l_seq) {\n"
+     "          r->error = \"QUAL length != SEQ length\";\n"
+     "          return false;\n"
+     "        }\n",
+     "        if (fe[10] - f[10] != l_seq)\n"
+     "          return reject(\"record\", \"QUAL length != SEQ length\");\n"),
+    ("guac_runtime.cpp",
+     f"{_SAM}: a QUAL refusal names its line",
+     "          if ((uint8_t)*qq < 33) {\n"
+     "            r->error = \"QUAL character below '!' (corrupt quality"
+     " string)\";\n"
+     "            return false;\n"
+     "          }\n",
+     "          if ((uint8_t)*qq < 33)\n"
+     "            return reject(\"record\",\n"
+     "                          \"QUAL character below '!' (corrupt"
+     " quality string)\");\n"),
     ("guac_runtime.cpp",
      "guac_build_events: an exception returns no handle",
      "  Reads* r = new Reads();\n"

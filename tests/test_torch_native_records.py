@@ -1,8 +1,9 @@
 """The record parser of the port's native runtime on malformed records.
 
 parse_bam_records (runtime/csrc/guac_runtime.cpp) bounds every field of a
-record by its block before it uses it, and a decoder that refuses an input
-says why (guac_last_error). This file holds that:
+record by its block (and its reference ids by the header) before it uses
+it, and a decoder that refuses an input says why (guac_last_error). This
+file holds that:
 
 - every targeted mutant of tests/bam_mutants.py, made from the scale-0.02
   fixture's normal and germline BAMs, through the decode harness built
@@ -17,6 +18,13 @@ says why (guac_last_error). This file holds that:
   and exit code 1, without reading the file again with the object reader;
 - 200 seeded byte and int32 mutations of the normal BAM's records: no
   sanitizer report and no abort (a mutant may be accepted);
+- decode_bam_chunks walks each .bai chunk to its end block or to the end
+  of the file: the germline BAM cut in its last data block, over the
+  clean file's .bai chunks, and chunks that start past the end of a file
+  are refused, naming the chunk and its two virtual offsets (under ASan,
+  and in streaming germline-threshold as one error line); every
+  well-formed .bai and fine-index chunk list of the three BAMs decodes
+  the whole file's reads of its regions;
 - a failed build of the runtime says why, with the compiler's last lines.
 """
 
@@ -31,6 +39,7 @@ import bam_mutants
 import native_build
 from guacamole_tpu_torch.gio.bai import (
     BamIndex,
+    FineIndex,
     build_bam_index,
     optimize_chunks,
 )
@@ -173,6 +182,157 @@ def test_the_cli_fails_with_one_line(targeted, tmp_path, monkeypatch,
     assert rc == 1
     assert len(errors) == 1, errors
     assert f"ValueError: {path}: " in errors[0] and mutant.field in errors[0]
+
+
+# --- .bai chunks that cannot be walked --------------------------------------
+
+
+def _contig_chunks(index, references, parts):
+    """Per region, (ref_id, lo, hi) and its merged .bai chunks: every
+    contig cut into `parts` equal regions."""
+    out = []
+    for rid, (_, length) in enumerate(references):
+        step = -(-length // parts)
+        for lo in range(0, length, step):
+            hi = min(lo + step, length)
+            out.append(((rid, lo, hi), optimize_chunks(
+                [index.chunks_for_region(rid, lo, hi)])))
+    return out
+
+
+def _read_keys(cols, region=None):
+    """Multiset of (ref_id, start, end, flags, seq) of the decoded reads,
+    or of those that are mapped and overlap region (ref_id, lo, hi)."""
+    keys = {}
+    for i in range(len(cols["start"])):
+        rid, start, end = (int(cols["ref_id"][i]), int(cols["start"][i]),
+                           int(cols["end"][i]))
+        if region is not None and not (
+                rid == region[0] and not cols["flags"][i] & 4
+                and start < region[2] and end > region[1]):
+            continue
+        seq = bytes(cols["seq"][cols["seq_off"][i]:cols["seq_off"][i + 1]])
+        key = (rid, start, end, int(cols["flags"][i]), seq)
+        keys[key] = keys.get(key, 0) + 1
+    return keys
+
+
+@pytest.mark.parametrize("sample", ["normal", "tumor", "germline"])
+def test_every_well_formed_chunk_list_decodes_the_whole_files_records(
+        small, tmp_path, sample):
+    """The .bai and fine-index chunks of every contig, whole and cut into
+    3 and 16 regions, over the scale-0.02 BAMs: no refusal; each region's
+    decode holds every mapped read of the whole-file decode that overlaps
+    it, and a whole contig's chunks decode exactly its reads."""
+    path = small[f"{sample}_bam"]
+    bai = build_bam_index(path, str(tmp_path / "x.bai"))
+    whole = port_native.decode_bam_native(path)
+    references = BamFile(path).references
+    for index in (BamIndex(bai), FineIndex(bai + ".gli")):
+        for parts in (1, 3, 16):
+            for region, chunks in _contig_chunks(index, references, parts):
+                got = _read_keys(port_native.decode_bam_native(
+                    path, chunks=chunks))
+                want = _read_keys(whole, region)
+                assert all(got.get(k, 0) >= n for k, n in want.items()), (
+                    region, parts)
+    every = optimize_chunks([c for _, c in _contig_chunks(
+        BamIndex(bai), references, 1)])
+    assert _read_keys(port_native.decode_bam_native(
+        path, chunks=every)) == _read_keys(whole)
+
+
+@pytest.fixture(scope="module")
+def cut(small, tmp_path_factory):
+    """The germline BAM cut in the middle of its last data block, with the
+    clean file's .bai beside it (an index older than its BAM); the chunks
+    of every contig, whole, and of the last record's locus."""
+    tmp = tmp_path_factory.mktemp("cut")
+    clean = small["germline_bam"]
+    bam = bam_mutants.read_bam(clean)
+    path = str(tmp / "cut.bam")
+    with open(path, "wb") as fh:
+        fh.write(bam_mutants.cut_in_last_data_block(bam))
+    bai = build_bam_index(clean, path + ".bai")
+    index = BamIndex(bai)
+    ref_id, pos = struct.unpack_from("<ii", bam.stream, bam.records[-1] + 4)
+    every = optimize_chunks([c for _, c in _contig_chunks(
+        index, BamFile(clean).references, 1)])
+    last = optimize_chunks([index.chunks_for_region(ref_id, pos, pos + 1)])
+    return path, bam, [every, last]
+
+
+def _names_a_chunk(reason, chunk_lists):
+    """The reason starts with `chunk K [B, E): ` of one of the lists."""
+    head, _, _ = reason.partition("): ")
+    k, _, offsets = head.removeprefix("chunk ").partition(" [")
+    named = tuple(int(v) for v in offsets.split(", "))
+    return any(int(k) < len(chunks) and tuple(chunks[int(k)]) == named
+               for chunks in chunk_lists)
+
+
+def test_a_bam_cut_in_its_last_data_block_is_refused_over_its_chunks(
+        cut, harness, tmp_path):
+    """Every decoder refuses the cut file, under AddressSanitizer: the
+    whole-file decoder (a malformed block), the chunk decoder over the
+    whole file and over each .bai chunk list (the block walk stops at the
+    cut block's header before it reaches the chunk's end), naming the
+    chunk and its two virtual offsets. None keeps the reads before the
+    cut."""
+    path, _, lists = cut
+    calls = _run(harness, lists, [path], tmp_path, "cut")[path]
+    whole, chunked = calls[0], calls[1:-1]
+    assert whole == (-1, "malformed BGZF block"), calls
+    size = os.path.getsize(path)
+    for (n, reason), chunks in zip(chunked, [[(0, size << 16)]] + lists):
+        assert n == -1, calls
+        assert _names_a_chunk(reason, [chunks]), (reason, chunks)
+        assert "no readable block header at compressed offset" in reason
+    with pytest.raises(ValueError) as refused:
+        port_native.decode_bam_native(path, chunks=lists[0])
+    assert str(refused.value).startswith(f"{path}: chunk ")
+
+
+def test_a_chunk_that_starts_past_the_end_of_the_file_is_refused(
+        cut, harness, tmp_path):
+    """The germline BAM cut before the block of its last record: the clean
+    file's chunks of that record's locus start at the end of the file, or
+    past it. The chunk decoder refuses them, naming the chunk; it skipped
+    them before, and the reads were lost with exit code 0."""
+    _, bam, lists = cut
+    last = lists[1]
+    path = str(tmp_path / "short.bam")
+    with open(path, "wb") as fh:
+        fh.write(bam.data[:last[0][0] >> 16])
+    calls = _run(harness, [last], [path], tmp_path, "short")[path]
+    n, reason = calls[2]
+    assert n == -1 and _names_a_chunk(reason, [last]), calls
+    assert "at or past the end of the file" in reason, calls
+
+
+def test_the_streaming_cli_fails_with_one_line_on_the_cut_bam(
+        cut, tmp_path, monkeypatch, capsys):
+    """germline-threshold in streaming mode (the .bai beside the BAM, one
+    decode per task) on the cut BAM: exit code 1, one error line naming
+    the file and the chunk, no VCF. The whole-file path is never taken."""
+    from guacamole_tpu_torch import cli
+    from guacamole_tpu_torch.callers import common
+
+    def whole_file(*_args, **_kwargs):
+        raise AssertionError("the whole-file path read the file")
+
+    monkeypatch.setattr(common, "load_read_source", whole_file)
+    path = cut[0]
+    out = tmp_path / "out.vcf"
+    rc = cli.main(["germline-threshold", "--reads", path, "--threshold",
+                   "25", "--parallelism", "2", "--device", "cpu", "--out",
+                   str(out)])
+    errors = [line for line in capsys.readouterr().err.splitlines()
+              if line.startswith("guacamole-torch germline-threshold: error")]
+    assert rc == 1
+    assert len(errors) == 1, errors
+    assert f"ValueError: {path}: chunk " in errors[0], errors
+    assert not out.exists()
 
 
 def test_random_record_mutations_read_no_byte_outside_the_record(
