@@ -2324,11 +2324,19 @@ def run_multiprocess_slice(manifest, out) -> None:
 # over 4,096 loci from 348,160: deep1m's 8000x spike [350,000, 352,000)
 # with its overflow clump, in the 1000x band, where the threads contend
 # most (about 20M elements); the tumor BAM packs its first eight windows.
+# The dense modes (2 germline, 3 tumor) pay per cell of [L, D], with D at
+# the spike's depth (about 16K): two 4,096-loci windows took 88.4 and
+# 85.5 s under TSan on an H100's host. So they pack
+# two windows of 1,024 loci from 348,976: one in the band, ending where
+# the spike starts, then the spike's first 1,024 loci with its overflow
+# clump at 351,000 (a tile of about 17M cells).
 NATIVE_PACKS = (
     # (sample, guac_pack_tile modes, window, windows per contig, first locus)
     ("germline_bam", (1, 2), 114_688, 2, 0),
     ("germline_bam", (1,), 4_096, 1, 348_160),
+    ("germline_bam", (2,), 1_024, 2, 348_976),
     ("tumor_bam", (3,), 10_240, 8, 0),
+    ("tumor_bam", (3,), 1_024, 2, 348_976),
 )
 NATIVE_MODES = {1: "germline-threshold's CSR",
                 2: "germline-standard's dense likelihood",
@@ -2342,8 +2350,9 @@ def run_native_slice(manifest, out) -> None:
     fixture's windows under ThreadSanitizer, then every targeted record
     mutant of tests/bam_mutants.py (made from the scale-0.02 fixture)
     through the three BAM decoders, every mutant of tests/sam_mutants.py
-    through the SAM decoder, and a BAM cut in its last data block over its
-    .bai chunks, under AddressSanitizer. Any report fails the run."""
+    through the SAM decoder, a BAM cut in its last data block and one cut
+    at a block boundary over their .bai chunks, under AddressSanitizer. Any
+    report fails the run."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import bam_mutants
     import native_build
@@ -2495,13 +2504,45 @@ def run_native_slice(manifest, out) -> None:
     check(calls[0][0] == -1 and all(n == -1 and reason.startswith("chunk ")
                                     for n, reason in calls[1:]),
           f"the cut BAM was not refused naming its chunk: {calls}")
+    # The germline BAM written with record-aligned blocks, as htslib
+    # writes it, without its last data block and its EOF marker, over the
+    # whole file's .bai: only the chunk decoder over those chunks can tell.
+    aligned_data, boundary_data = bam_mutants.cut_at_block_boundary(bam)
+    boundary = os.path.join(work, "boundary.bam")
+    aligned = os.path.join(work, "aligned.bam")
+    for name, data in ((aligned, aligned_data), (boundary, boundary_data)):
+        with open(name, "wb") as fh:
+            fh.write(data)
+    index = BamIndex(build_bam_index(aligned, boundary + ".bai"))
+    every = optimize_chunks([
+        index.chunks_for_region(rid, 0, length)
+        for rid, (_, length) in enumerate(BamFile(aligned).references)])
+    with open(chunks_file, "w") as fh:
+        fh.write(" ".join(f"{b} {e}" for b, e in every) + "\n")
+    run = subprocess.run([exes["address"], chunks_file, boundary],
+                         capture_output=True, text=True, timeout=300, env=env)
+    boundary_reports = run.stderr.count("ERROR: AddressSanitizer")
+    check("AddressSanitizer" not in run.stderr and run.returncode == 0,
+          f"AddressSanitizer, BAM cut at a block boundary: "
+          f"{run.stderr[-4000:]}")
+    calls = native_build.parse_decodes(run.stdout)[boundary][:3]
+    kept = sum(1 for _ in BamFile(boundary).raw_records())
+    check(calls[:2] == [(kept, ""), (kept, "")] and calls[2][0] == -1
+          and calls[2][1].startswith("chunk ")
+          and "past the end of the file" in calls[2][1],
+          f"the BAM cut at a block boundary: {calls}, {kept} records kept")
+    sam_refused = sum(decodes[path][-1][0] == -1 for _, path, _ in sams)
     print(f"native: {len(sams)} SAM mutants of the scale-0.02 normal and "
           f"germline SAMs through the SAM decoder under AddressSanitizer: "
-          f"{sam_reports} reports, {len(sams)} refused naming their field "
-          f"and line; the germline BAM cut in its last data block: "
-          f"{cut_reports} reports, refused by the whole-file decoder and "
-          f"by the chunk decoder over the file and over its .bai chunks, "
-          f"naming the chunk; {time.perf_counter() - t0:.3f} s; the phase "
+          f"{sam_reports} reports, {sam_refused} refused naming their field "
+          f"and line, {len(sams) - sam_refused} accepted; the germline BAM "
+          f"cut in its last data block: {cut_reports} reports, refused by "
+          f"the whole-file decoder and by the chunk decoder over the file "
+          f"and over its .bai chunks, naming the chunk; the germline BAM cut "
+          f"at a block boundary: {boundary_reports} reports, {kept} records "
+          f"read by the whole-file decoder and the chunk over the file, "
+          f"refused over its .bai chunks, naming the chunk; "
+          f"{time.perf_counter() - t0:.3f} s; the phase "
           f"{time.perf_counter() - phase_t0:.3f} s in all", flush=True)
 
 

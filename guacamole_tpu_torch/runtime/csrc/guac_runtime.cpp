@@ -87,6 +87,11 @@ struct BgzfBlock {
 // A BGZF block inflates to at most 64 KiB (SAM/BAM spec 4.1); a larger
 // ISIZE is corrupt input, not a size to allocate.
 static const uint32_t kBgzfMaxBlock = 65536;
+// The EOF marker (SAM/BAM spec 4.1.2): an empty block, the least a block
+// can take.
+static const uint8_t kBgzfEof[28] = {
+    0x1f, 0x8b, 8, 4, 0, 0, 0, 0, 0, 0xff, 6, 0, 0x42, 0x43,
+    2,    0,    0x1b, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 
 // Scan block headers; returns false on malformed input.
 static bool scan_bgzf_blocks(const std::vector<uint8_t>& data,
@@ -337,11 +342,36 @@ static void parse_read_groups(const std::string& text,
   }
 }
 
+// [b, e) for a reason: printable ASCII, anything else as '?', at most 40
+// characters (a reason is one line of text, tab-free).
+static std::string shown(const char* b, const char* e) {
+  std::string out;
+  for (const char* p = b; p < e && out.size() < 40; p++)
+    out.push_back(*p >= ' ' && *p <= '~' ? *p : '?');
+  if (e - b > 40) out += "...";
+  return out;
+}
+
+static bool ascii_letter(char ch) {
+  return (ch >= 'A' && ch <= 'Z') || (ch >= 'a' && ch <= 'z');
+}
+
 // Expand MD tag + cigar + seq into reference bases and events for one read.
-// Returns false on malformed MD (caller falls back to N reference).
-static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
-                      size_t n_cigar, const uint8_t* seq, uint8_t* md_ref,
-                      size_t span, int32_t* mismatch_count) {
+// Returns nullptr, or why the tag cannot be expanded: exactly the tags on
+// which reads/mdtag.py's MdTag raises MdTagError (the caller refuses a
+// read the object path places, and gives any other N reference).
+static const char* expand_md(const char* md, size_t md_len,
+                             const uint32_t* cigar, size_t n_cigar,
+                             const uint8_t* seq, uint8_t* md_ref,
+                             size_t span, int32_t* mismatch_count) {
+  // MD text is runs of digits, single letters, and '^' before the
+  // letters of a deletion; MdTag tokenizes the whole tag first.
+  for (size_t i = 0; i < md_len; i++) {
+    const char ch = md[i];
+    if (ch == '^' ? !(i + 1 < md_len && ascii_letter(md[i + 1]))
+                  : !(ascii_letter(ch) || (ch >= '0' && ch <= '9')))
+      return "is not MD text";
+  }
   size_t mi = 0;   // index into md string
   long run = 0;    // remaining matched bases
   bool have_run = false;
@@ -364,7 +394,7 @@ static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
   for (size_t c = 0; c < n_cigar; c++) {
     uint32_t len = cigar[c] >> 4;
     uint32_t op = cigar[c] & 0xf;
-    if (op > OP_X) return false;  // no op of the spec; the tables hold 9
+    if (op > OP_X) return "meets a CIGAR op above 8";  // the tables hold 9
     if (op == OP_M || op == OP_EQ || op == OP_X) {
       uint32_t remaining = len;
       while (remaining > 0) {
@@ -376,12 +406,12 @@ static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
           ref_pos += step;
           read_pos += step;
         } else {
-          if (mi >= md_len) return false;
+          if (mi >= md_len) return "ended early for the CIGAR";
           char ch = md[mi];
           if (ch >= '0' && ch <= '9') {
             next_token_run();
           } else if (ch == '^') {
-            return false;  // deletion token inside match run
+            return "has a deletion inside a match run";
           } else {
             md_ref[ref_pos++] = toupper(ch);
             mismatches++;
@@ -396,13 +426,16 @@ static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
     } else if (op == OP_D) {
       // consume zero-length runs, then the ^-prefixed deletion
       while (have_run && run == 0 && mi < md_len && md[mi] == '^') break;
-      if (have_run && run > 0) return false;
-      if (mi >= md_len || md[mi] != '^') return false;
+      if ((have_run && run > 0) || mi >= md_len || md[mi] != '^')
+        return "lacks the deletion of a D op";
       mi++;
       for (uint32_t k = 0; k < len; k++) {
-        if (mi >= md_len || !isalpha(md[mi])) return false;
+        if (mi >= md_len || !ascii_letter(md[mi]))
+          return "has a deletion shorter than its D op";
         md_ref[ref_pos++] = toupper(md[mi++]);
       }
+      if (mi < md_len && ascii_letter(md[mi]))
+        return "has a deletion longer than its D op";
       have_run = false;
       next_token_run();
     } else if (op == OP_N) {
@@ -416,7 +449,7 @@ static bool expand_md(const char* md, size_t md_len, const uint32_t* cigar,
     }
   }
   *mismatch_count = mismatches;
-  return true;
+  return nullptr;
 }
 
 // Build the per-locus event arrays for one read (mirrors
@@ -609,6 +642,8 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     int64_t span;
     int64_t pos0;
     uint8_t mapq;
+    uint8_t placed;  // mapped with a reference and a position, as gio/bam.py
+    size_t at;       // offset of the record in the inflated stream
   };
   std::vector<RecMeta> metas;
   metas.reserve(1024);
@@ -790,6 +825,8 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     m.span = span;
     m.pos0 = pos0;
     m.mapq = mapq;
+    m.placed = !(flag & 4) && ref_id >= 0 && pos0 >= 0;
+    m.at = at;
     metas.push_back(m);
   }
   *default_sample_inout = default_sample;
@@ -814,6 +851,9 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
   size_t per = (n_new + nthreads - 1) / nthreads;
   std::vector<std::vector<Special>> range_specials(nthreads);
   std::vector<std::vector<uint8_t>> range_payload(nthreads);
+  // Per range, its first placed record whose MD tag cannot be expanded.
+  std::vector<std::pair<size_t, const char*>> md_faults(nthreads,
+                                                        {SIZE_MAX, nullptr});
 
   auto work = [&](int t) {
     size_t lo = (size_t)t * per;
@@ -867,10 +907,13 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
       memset(mdref, 'N', span);
       int32_t mm = -1;
       if (m.md != nullptr && m.consistent) {
-        if (!expand_md(m.md, (size_t)m.md_len, cigar, m.n_cigar, seq_out,
-                       mdref, span, &mm)) {
+        const char* fault = expand_md(m.md, (size_t)m.md_len, cigar,
+                                      m.n_cigar, seq_out, mdref, span, &mm);
+        if (fault != nullptr) {
           memset(mdref, 'N', span);
           mm = -1;
+          if (m.placed && md_faults[t].first == SIZE_MAX)
+            md_faults[t] = {k, fault};
         }
       }
       r->mismatches[ri] = mm < 0 ? 0 : mm;
@@ -894,6 +937,14 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     std::vector<std::thread> pool;
     for (int t = 0; t < nthreads; t++) pool.emplace_back(work, t);
     for (auto& th : pool) th.join();
+  }
+  // A tag the object path raises on refuses the decode, at its first
+  // record (ranges are in read order).
+  for (const auto& fault : md_faults) {
+    if (fault.first == SIZE_MAX) continue;
+    const RecMeta& m = metas[fault.first];
+    return reject(m.at, "MD tag \"" + shown(m.md, m.md + m.md_len) + "\" " +
+                            fault.second);
   }
 
   // Stitch per-range specials (ranges are in read order).
@@ -1120,6 +1171,16 @@ static Reads* decode_bam_chunks(const char* path, int threads,
       return refuse("no readable block header at compressed offset " +
                     std::to_string((size_t)c0 + loff) +
                     ", before the chunk's end block at " + std::to_string(c1));
+    // A walk that read the whole file ends the chunk there only where the
+    // index says so (an index writes file size << 16 for the last end):
+    // an end further on is a chunk of a longer file, whose lost blocks'
+    // reads would go missing. Only the 28 bytes of an EOF marker, which
+    // hold no read, may be missing (the same file with its marker).
+    if ((size_t)c1 > stream.fsize + sizeof(kBgzfEof))
+      return refuse("ends at compressed offset " + std::to_string(c1) +
+                    ", past the end of the file (" +
+                    std::to_string(stream.fsize) +
+                    " bytes) by more than an EOF marker");
     if (u0 > lbs[0].usize)
       return refuse("starts at byte " + std::to_string(u0) +
                     " of a block that inflates to " +
@@ -1187,6 +1248,14 @@ void* guac_decode_bam(const char* path, int threads) {
     std::unique_ptr<Reads> r(new Reads());
     if (!parse_bam(uncompressed, r.get(), threads))
       return decode_failed(r->error);
+    // A BAM that lost whole trailing blocks reads like one written without
+    // the marker: as htslib does, say so, and decode all the same.
+    if (raw.size() < sizeof(kBgzfEof) ||
+        memcmp(raw.data() + raw.size() - sizeof(kBgzfEof), kBgzfEof,
+               sizeof(kBgzfEof)) != 0)
+      fprintf(stderr,
+              "warning: %s: no BGZF EOF marker, the file may be truncated\n",
+              path);
     return r.release();
   });
 }
@@ -1266,15 +1335,18 @@ namespace {
 // with the SAME code the BAM decoder's phase 2 uses (mirrors
 // pack/events.py read_pileup_events). Outputs are caller-allocated
 // (ev_* sized ev_off[n], mismatches [n]); specials + payload append to r.
-void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
-                         const int64_t* seq_off, const uint8_t* seq,
-                         const uint8_t* qual, const int64_t* cigar_off,
-                         const uint32_t* cigar_len, const uint8_t* cigar_op,
-                         const int64_t* md_off, const uint8_t* md_text,
-                         const int64_t* ev_off, int threads,
-                         uint8_t* ev_kind, uint8_t* ev_base, uint8_t* ev_qual,
-                         uint8_t* ev_mdref, int32_t* mismatches, Reads* r) {
-  if (n <= 0) return;
+// Returns the first read with placed[i] set whose MD tag cannot be
+// expanded, and sets *md_why to why; -1 where there is none (or no
+// placed).
+int64_t fill_events_columns(
+    int64_t n, const int64_t* start, const int32_t* mapq,
+    const int64_t* seq_off, const uint8_t* seq, const uint8_t* qual,
+    const int64_t* cigar_off, const uint32_t* cigar_len,
+    const uint8_t* cigar_op, const int64_t* md_off, const uint8_t* md_text,
+    const int64_t* ev_off, int threads, uint8_t* ev_kind, uint8_t* ev_base,
+    uint8_t* ev_qual, uint8_t* ev_mdref, int32_t* mismatches, Reads* r,
+    const uint8_t* placed = nullptr, const char** md_why = nullptr) {
+  if (n <= 0) return -1;
   if (threads < 1) {
     threads = (int)std::min<unsigned>(std::thread::hardware_concurrency(), 16);
     if (threads < 1) threads = 1;
@@ -1283,6 +1355,8 @@ void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
   int64_t per = (n + nthreads - 1) / nthreads;
   std::vector<std::vector<Special>> range_specials(nthreads);
   std::vector<std::vector<uint8_t>> range_payload(nthreads);
+  std::vector<std::pair<int64_t, const char*>> md_faults(nthreads,
+                                                         {-1, nullptr});
 
   auto work = [&](int t) {
     int64_t lo = (int64_t)t * per;
@@ -1333,11 +1407,15 @@ void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
       int64_t md_len = md_off[i + 1] - md_off[i];
       int32_t mm = -1;
       if (md_len > 0) {
-        if (!expand_md(reinterpret_cast<const char*>(md_text + md_off[i]),
-                       (size_t)md_len, enc.data(), (int32_t)n_cigar, rseq,
-                       mdref, (size_t)span, &mm)) {
+        const char* fault = expand_md(
+            reinterpret_cast<const char*>(md_text + md_off[i]),
+            (size_t)md_len, enc.data(), (int32_t)n_cigar, rseq, mdref,
+            (size_t)span, &mm);
+        if (fault != nullptr) {
           memset(mdref, 'N', (size_t)span);
           mm = -1;
+          if (placed != nullptr && placed[i] && md_faults[t].first < 0)
+            md_faults[t] = {i, fault};
         }
       }
       mismatches[i] = mm < 0 ? 0 : mm;
@@ -1365,16 +1443,12 @@ void fill_events_columns(int64_t n, const int64_t* start, const int32_t* mapq,
                               range_payload[t].begin(),
                               range_payload[t].end());
   }
-}
-
-// [b, e) for a reason: printable ASCII, anything else as '?', at most 40
-// characters (a reason is one line of text, tab-free).
-static std::string shown(const char* b, const char* e) {
-  std::string out;
-  for (const char* p = b; p < e && out.size() < 40; p++)
-    out.push_back(*p >= ' ' && *p <= '~' ? *p : '?');
-  if (e - b > 40) out += "...";
-  return out;
+  for (const auto& fault : md_faults) {
+    if (fault.first < 0) continue;
+    *md_why = fault.second;
+    return fault.first;
+  }
+  return -1;
 }
 
 // Reads the SAM field [b, e) whole as a decimal integer in [lo, hi]: an
@@ -1410,6 +1484,61 @@ static bool parse_sam_int(const char* b, const char* e, int64_t lo,
   return true;
 }
 
+// The bytes a regular expression of SAMv1 1.4 allows, from its class
+// ("0-9A-Za-z": ranges and single bytes, a '-' last stands for itself).
+struct ByteSet {
+  bool in[256] = {};
+  explicit ByteSet(const char* cls) {
+    for (const char* p = cls; *p; p++) {
+      if (p[1] == '-' && p[2] != '\0') {
+        for (int b = (uint8_t)p[0]; b <= (uint8_t)p[2]; b++) in[b] = true;
+        p += 2;
+      } else {
+        in[(uint8_t)*p] = true;
+      }
+    }
+  }
+};
+const ByteSet kQname("!-?A-~"), kRefFirst("0-9A-Za-z!#$%&+./:;?@^_|~-"),
+    kRef("0-9A-Za-z!#$%&*+./:;=?@^_|~-"), kCigar("0-9MIDNSHPX="),
+    kSeq("A-Za-z=."), kQual("!-~");
+
+// SEQ and QUAL hold most of a SAM's bytes: a test of their sets that the
+// compiler vectorizes passes a clean field before its bytes are looked up.
+static bool all_seq(const char* b, const char* e) {
+  unsigned ok = 1;
+  for (const char* c = b; c < e; c++) {
+    const uint8_t x = (uint8_t)*c;
+    ok &= ((uint8_t)((x | 0x20) - 'a') < 26) | (x == '=') | (x == '.');
+  }
+  return ok;
+}
+static bool all_qual(const char* b, const char* e) {
+  unsigned ok = 1;
+  for (const char* c = b; c < e; c++) ok &= (uint8_t)(*c - '!') <= '~' - '!';
+  return ok;
+}
+
+// A mandatory text field: its index, its name, the bytes its first and
+// its other bytes may be, the values it may be outside that pattern, and
+// a faster test of the whole field where it has one.
+struct TextField {
+  int index;
+  const char* name;
+  const ByteSet* first;
+  const ByteSet* rest;
+  const char* alone;
+  bool (*clean)(const char*, const char*);
+};
+const TextField kTextFields[] = {
+    {0, "QNAME", &kQname, &kQname, "", nullptr},
+    {2, "RNAME", &kRefFirst, &kRef, "*", nullptr},
+    {5, "CIGAR", &kCigar, &kCigar, "*", nullptr},
+    {6, "RNEXT", &kRefFirst, &kRef, "*=", nullptr},
+    {9, "SEQ", &kSeq, &kSeq, "*", all_seq},
+    {10, "QUAL", &kQual, &kQual, "", all_qual},
+};
+
 // Parse SAM text into the same columnar Reads the BAM decoder produces
 // (header @SQ/@RG, records, then event arrays via fill_events_columns).
 // Mirrors gio/sam.py: seq/qual '*' handling, '='/unknown-contig rules,
@@ -1418,8 +1547,10 @@ static bool parse_sam_int(const char* b, const char* e, int64_t lo,
 // stop at '\t'/'\n' but must not run off the allocation on a truncated
 // final line).
 // Every numeric field is read whole and held to its range in the SAM spec
-// (SAMv1 1.4); a field that fails ends the parse, and r->error names the
-// field and its 1-based line.
+// (SAMv1 1.4), every text field to the bytes the spec allows it, every
+// optional field to TAG:TYPE:VALUE, and a placed read's MD tag to what
+// reads/mdtag.py reads; a field that fails ends the parse, and r->error
+// names the field and its 1-based line.
 bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
                     int threads) {
   const char* p = reinterpret_cast<const char*>(text.data());
@@ -1487,6 +1618,10 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
   memset(op_code, 0xff, sizeof(op_code));
   const char* ops = "MIDNSHP=X";
   for (int i = 0; ops[i]; i++) op_code[(uint8_t)ops[i]] = (uint8_t)i;
+  // Per record: placed as gio/sam.py places it (its MD tag is parsed
+  // there), and its line.
+  std::vector<uint8_t> placed;
+  std::vector<int64_t> line_of;
 
   while (body < end) {
     line_no++;
@@ -1513,6 +1648,21 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       if (!tab) break;
     }
     if (nf < 11) return reject("record", "fewer than 11 fields");
+    for (const TextField& tf : kTextFields) {
+      const char* b = f[tf.index];
+      const char* e = fe[tf.index];
+      if (e - b == 1 && *b != '\0' && strchr(tf.alone, *b)) continue;
+      if (tf.clean != nullptr && tf.clean(b, e)) continue;
+      for (const char* c = b; c < e; c++) {
+        if ((c == b ? tf.first : tf.rest)->in[(uint8_t)*c]) continue;
+        char byte[8];
+        snprintf(byte, sizeof(byte), "0x%02x", (unsigned)(uint8_t)*c);
+        return reject("record", std::string(tf.name) + " \"" + shown(b, e) +
+                                    "\" holds byte " + byte + " at " +
+                                    std::to_string(c - b) +
+                                    ", which SAMv1 excludes");
+      }
+    }
 
     int64_t flag, pos, mapq;
     if (!parse_sam_int(f[1], fe[1], 0, 0xFFFF, "FLAG", &flag, &why) ||
@@ -1590,14 +1740,9 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
       } else {
         if (fe[10] - f[10] != l_seq)
           return reject("record", "QUAL length != SEQ length");
-        for (const char* qq = f[10]; qq < fe[10]; qq++) {
-          // Phred+33: anything below '!' is corrupt input; a silent
-          // uint8 wrap would fabricate a huge base quality.
-          if ((uint8_t)*qq < 33)
-            return reject("record",
-                          "QUAL character below '!' (corrupt quality string)");
+        // Phred+33, every byte in '!'-'~' (checked above).
+        for (const char* qq = f[10]; qq < fe[10]; qq++)
           r->qual.push_back((uint8_t)(*qq - 33));
-        }
       }
     }
 
@@ -1611,6 +1756,14 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
         const char* tab = static_cast<const char*>(
             memchr(t, '\t', (size_t)(tags_end - t)));
         const char* te = tab ? tab : tags_end;
+        // TAG:TYPE:VALUE, or the line is no SAM record: a line that joins
+        // two records reads the second one's fields here.
+        if (!(te - t >= 5 && ascii_letter(t[0]) &&
+              (ascii_letter(t[1]) || (t[1] >= '0' && t[1] <= '9')) &&
+              t[2] == ':' && t[3] != '\0' && strchr("AcCsSiIfZHB", t[3]) &&
+              t[4] == ':'))
+          return reject("record", "optional field \"" + shown(t, te) +
+                                      "\" is not TAG:TYPE:VALUE");
         if (te - t > 5 && memcmp(t, "MD:Z:", 5) == 0 && md_len == 0) {
           // First MD:Z only: appending repeats while md_len keeps just the
           // last would desynchronize md_off for every later read.
@@ -1646,6 +1799,8 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
     r->cigar_off.push_back(r->cigar_off.back() + cigar_count);
     r->md_off.push_back(r->md_off.back() + md_len);
     r->ev_off.push_back(r->ev_off.back() + span);
+    placed.push_back(!(flag & 4) && ref_id >= 0);
+    line_of.push_back(line_no);
   }
 
   // ---- events (same phase-2 code as the BAM decoder) ----
@@ -1655,13 +1810,22 @@ bool parse_sam_text(const std::vector<uint8_t>& text, size_t size, Reads* r,
   r->ev_base.resize((size_t)total);
   r->ev_qual.resize((size_t)total);
   r->ev_mdref.resize((size_t)total);
-  fill_events_columns(n, r->start.data(), r->mapq.data(), r->seq_off.data(),
-                      r->seq.data(), r->qual.data(), r->cigar_off.data(),
-                      r->cigar_len.data(), r->cigar_op.data(),
-                      r->md_off.data(), r->md_text.data(), r->ev_off.data(),
-                      threads, r->ev_kind.data(), r->ev_base.data(),
-                      r->ev_qual.data(), r->ev_mdref.data(),
-                      r->mismatches.data(), r);
+  const char* md_why = nullptr;
+  const int64_t bad = fill_events_columns(
+      n, r->start.data(), r->mapq.data(), r->seq_off.data(), r->seq.data(),
+      r->qual.data(), r->cigar_off.data(), r->cigar_len.data(),
+      r->cigar_op.data(), r->md_off.data(), r->md_text.data(),
+      r->ev_off.data(), threads, r->ev_kind.data(), r->ev_base.data(),
+      r->ev_qual.data(), r->ev_mdref.data(), r->mismatches.data(), r,
+      placed.data(), &md_why);
+  if (bad >= 0) {
+    line_no = line_of[bad];
+    const char* md = reinterpret_cast<const char*>(r->md_text.data());
+    return reject("record", "MD tag \"" +
+                                shown(md + r->md_off[bad],
+                                      md + r->md_off[bad + 1]) +
+                                "\" " + md_why);
+  }
   return true;
 }
 

@@ -3,7 +3,8 @@
 Each targeted mutant changes one field of a SAM's last record line, or of
 its first @SQ header line, and writes the file again; every other byte
 stays. A refusal must name the field and the line (1-based, header lines
-counted).
+counted). Files are read and written as latin-1, so that a mutant can hold
+any byte.
 
 Used by tests/test_torch_native_sam.py and by chip_smoke.py's `native`
 phase; it imports nothing of JAX.
@@ -19,7 +20,8 @@ import numpy as np
 INT32_MAX = (1 << 31) - 1
 # Record fields by index: QNAME FLAG RNAME POS MAPQ CIGAR RNEXT PNEXT TLEN
 # SEQ QUAL, then the tags.
-_FLAG, _POS, _MAPQ, _CIGAR, _PNEXT, _TLEN = 1, 3, 4, 5, 7, 8
+_QNAME, _FLAG, _RNAME, _POS, _MAPQ, _CIGAR = 0, 1, 2, 3, 4, 5
+_RNEXT, _PNEXT, _TLEN, _SEQ, _QUAL = 6, 7, 8, 9, 10
 
 
 class SamMutant(NamedTuple):
@@ -34,6 +36,30 @@ def _field(index: int, value: str):
     def edit(fields: List[str]) -> None:
         fields[index] = value
     return edit
+
+
+def _byte(index: int, at: int, byte: int, replace: bool = False):
+    """`byte` inserted into the field before its byte `at`, or put in
+    that byte's place (so that SEQ and QUAL keep their length)."""
+    def edit(fields: List[str]) -> None:
+        value = fields[index]
+        fields[index] = value[:at] + chr(byte) + value[at + replace:]
+    return edit
+
+
+def _md(tag: str, cigar: str = ""):
+    """The record's MD tag becomes tag, and its CIGAR cigar where given."""
+    def edit(fields: List[str]) -> None:
+        if cigar:
+            fields[_CIGAR] = cigar
+        k = next(i for i, f in enumerate(fields) if f.startswith("MD:Z:"))
+        fields[k] = "MD:Z:" + tag
+    return edit
+
+
+def _joined(fields: List[str]) -> None:
+    """The record's line written twice, without the newline between."""
+    fields.extend(list(fields))
 
 
 def _ln(value: str):
@@ -59,11 +85,35 @@ MUTANTS = (
     SamMutant("ten_long_ops", False,
               _field(_CIGAR, f"{(1 << 28) - 1}M" * 10), "span", True),
     SamMutant("ln_abc", True, _ln("abc"), "LN", True),
+    # The MD mutants of tests/bam_mutants.py, one for each MdTagError of
+    # reads/mdtag.py's MdTag; the last record is 100M.
+    SamMutant("md_not_md_text", False, _md("30A35?33"), "MD tag", True),
+    SamMutant("md_trailing_caret", False, _md("100^"), "MD tag", True),
+    SamMutant("md_ended_early", False, _md("50"), "MD tag", True),
+    SamMutant("md_deletion_in_match", False, _md("50^AC50"), "MD tag", True),
+    SamMutant("md_missing_deletion", False, _md("100", "50M2D50M"), "MD tag",
+              True),
+    SamMutant("md_deletion_length", False, _md("50^ACG50", "50M2D50M"),
+              "MD tag", True),
+    # Two records on one line: the second one's QNAME is read as an
+    # optional field, which the object reader skips.
+    SamMutant("joined_line", False, _joined, "optional field", False),
+    # A byte SAMv1 section 1.4 excludes from each mandatory text field.
+    # The object reader takes the first four; 0x80 is no UTF-8, and a
+    # CIGAR with whitespace does not match its pattern.
+    SamMutant("qname_0x01", False, _byte(_QNAME, 3, 0x01), "QNAME", False),
+    SamMutant("rname_0x20", False, _byte(_RNAME, 4, 0x20), "RNAME", False),
+    SamMutant("rnext_0x7f", False, _field(_RNEXT, "mate\x7f"), "RNEXT",
+              False),
+    SamMutant("qual_0x7f", False, _byte(_QUAL, 50, 0x7F, True), "QUAL",
+              False),
+    SamMutant("seq_0x80", False, _byte(_SEQ, 50, 0x80, True), "SEQ", True),
+    SamMutant("cigar_0x0b", False, _byte(_CIGAR, 0, 0x0B), "CIGAR", True),
 )
 
 
 def _lines(path: str) -> List[str]:
-    with open(path) as fh:
+    with open(path, encoding="latin-1") as fh:
         return fh.read().split("\n")
 
 
@@ -96,7 +146,7 @@ def write_mutants(sam_path: str, out_dir: str) -> Dict[str, Tuple[str, int]]:
     for mutant in MUTANTS:
         text, line_no = make_mutant(lines, mutant)
         path = os.path.join(out_dir, f"{stem}.{mutant.name}.sam")
-        with open(path, "w") as fh:
+        with open(path, "w", encoding="latin-1") as fh:
             fh.write(text)
         out[mutant.name] = (path, line_no)
     return out

@@ -10,9 +10,12 @@ file holds that:
   with AddressSanitizer, in the whole-file decoder, the chunk decoder over
   the whole file and over the .bai chunks of the last record's locus: no
   sanitizer report, no abort, no handle, and a reason that names the
-  field; the one legal mutant (a CIGAR op of 2^28 - 1 bases) decodes;
+  field (for an MD tag that cannot be expanded, one mutant per MdTagError
+  of reads/mdtag.py); the legal mutants (a CIGAR op of 2^28 - 1 bases, an
+  MD tag over an N gap) decode, the N gap with the reference bases the
+  object reader gives it;
 - where the port's object reader (gio/bam.py) raises on the same file, it
-  still does: the two readers of the port agree;
+  still does, with the same error: the two readers of the port agree;
 - decode_bam_native raises ValueError naming the file and the field, and
   `guacamole-torch germline-threshold --device cpu` fails with one line
   and exit code 1, without reading the file again with the object reader;
@@ -22,7 +25,10 @@ file holds that:
   of the file: the germline BAM cut in its last data block, over the
   clean file's .bai chunks, and chunks that start past the end of a file
   are refused, naming the chunk and its two virtual offsets (under ASan,
-  and in streaming germline-threshold as one error line); every
+  and in streaming germline-threshold as one error line); so are chunks
+  that end past the end of a file that lost whole trailing blocks at a
+  record boundary, which the whole-file decoder reads with a warning;
+  every
   well-formed .bai and fine-index chunk list of the three BAMs decodes
   the whole file's reads of its regions;
 - a failed build of the runtime says why, with the compiler's last lines.
@@ -44,6 +50,7 @@ from guacamole_tpu_torch.gio.bai import (
     optimize_chunks,
 )
 from guacamole_tpu_torch.gio.bam import BamFile
+from guacamole_tpu_torch.reads.mdtag import get_reference
 from guacamole_tpu_torch.runtime import native as port_native
 from guacamole_tpu_torch.utils.simulate import make_scale_fixture
 
@@ -138,12 +145,31 @@ def test_a_malformed_record_is_refused_with_its_field(
     "mutant", [m for m in bam_mutants.MUTANTS if m.object_reader_raises],
     ids=lambda m: m.name)
 def test_the_object_reader_refuses_the_same_records(targeted, mutant):
-    """gio/bam.py's reader raises on these mutants (struct.error,
-    IndexError): the native decoder now refuses them too."""
+    """gio/bam.py's reader raises on these mutants (struct.error or
+    IndexError on a record's fields, MdTagError on its MD tag): the native
+    decoder now refuses them too."""
     for sample in ("normal", "germline"):
         path = targeted[sample][1][mutant.name]
-        with pytest.raises((struct.error, IndexError)):
+        with pytest.raises(mutant.object_reader_raises):
             list(BamFile(path).records())
+
+
+@pytest.mark.parametrize("sample", ["normal", "germline"])
+def test_an_md_tag_over_an_n_gap_decodes_as_the_object_reader_reads_it(
+        targeted, sample):
+    """The last record made 50M100N50M with MD 100: no decoder refuses it,
+    and its reference bases and mismatches are the object reader's
+    (get_reference with N over the gap, which MD does not cover)."""
+    path = targeted[sample][1]["md_over_n_gap"]
+    read = list(BamFile(path).records())[-1]
+    assert [e.op_char for e in read.cigar] == ["M", "N", "M"]
+    cols = port_native.decode_bam_native(path)
+    i = len(cols["start"]) - 1
+    mdref = bytes(cols["ev_mdref"][cols["ev_off"][i]:cols["ev_off"][i + 1]])
+    assert mdref == get_reference(read.mdtag, read.sequence, read.cigar,
+                                  allow_n_base=True)
+    assert b"N" * 100 in mdref
+    assert cols["mismatches"][i] == read.mdtag.count_of_mismatches
 
 
 @pytest.mark.parametrize(
@@ -158,7 +184,7 @@ def test_decode_bam_native_raises_naming_file_and_field(targeted, mutant):
     assert mutant.field in str(refused.value)
 
 
-@pytest.mark.parametrize("name", ["l_seq_2e24", "cigar_op_9"])
+@pytest.mark.parametrize("name", ["l_seq_2e24", "cigar_op_9", "md_deletion_length"])
 def test_the_cli_fails_with_one_line(targeted, tmp_path, monkeypatch,
                                      capsys, name):
     """germline-threshold on a mutant: exit code 1 and one error line that
@@ -326,6 +352,83 @@ def test_the_streaming_cli_fails_with_one_line_on_the_cut_bam(
     out = tmp_path / "out.vcf"
     rc = cli.main(["germline-threshold", "--reads", path, "--threshold",
                    "25", "--parallelism", "2", "--device", "cpu", "--out",
+                   str(out)])
+    errors = [line for line in capsys.readouterr().err.splitlines()
+              if line.startswith("guacamole-torch germline-threshold: error")]
+    assert rc == 1
+    assert len(errors) == 1, errors
+    assert f"ValueError: {path}: chunk " in errors[0], errors
+    assert not out.exists()
+
+
+@pytest.fixture(scope="module")
+def cut_at_boundary(small, tmp_path_factory):
+    """The germline BAM written with record-aligned blocks, as htslib
+    writes it, then cut after a block, its last data block and the EOF
+    marker short, with the whole file's .bai beside it; the chunks of
+    every contig, whole, and of the last record's locus."""
+    tmp = tmp_path_factory.mktemp("boundary")
+    bam = bam_mutants.read_bam(small["germline_bam"])
+    clean, cut = bam_mutants.cut_at_block_boundary(bam)
+    clean_path, path = str(tmp / "clean.bam"), str(tmp / "cut.bam")
+    for name, data in ((clean_path, clean), (path, cut)):
+        with open(name, "wb") as fh:
+            fh.write(data)
+    index = BamIndex(build_bam_index(clean_path, path + ".bai"))
+    ref_id, pos = struct.unpack_from("<ii", bam.stream, bam.records[-1] + 4)
+    every = optimize_chunks([c for _, c in _contig_chunks(
+        index, BamFile(clean_path).references, 1)])
+    last = optimize_chunks([index.chunks_for_region(ref_id, pos, pos + 1)])
+    return path, clean_path, [every, last]
+
+
+def test_a_bam_cut_at_a_block_boundary_is_refused_over_its_chunks(
+        cut_at_boundary, harness, tmp_path, capfd):
+    """The cut file's .bai chunks end past its end (the chunk of every
+    contig) or start there (the last record's): the chunk decoder refuses
+    both under AddressSanitizer, naming the chunk; it took the first before
+    and lost the reads of the lost block. Nothing else can tell the cut:
+    the whole-file decoder and the chunk over the whole file read the kept
+    records, as the object reader does, and the whole-file decoder warns
+    on stderr that the EOF marker is missing."""
+    path, clean_path, lists = cut_at_boundary
+    kept = sum(1 for _ in BamFile(path).records())
+    assert 0 < kept < sum(1 for _ in BamFile(clean_path).records())
+    calls = _run(harness, lists, [path], tmp_path, "boundary")[path]
+    assert calls[:2] == [(kept, ""), (kept, "")], calls
+    (n_every, every), (n_last, last) = calls[2:4]
+    assert n_every == -1 and _names_a_chunk(every, lists[:1]), calls
+    assert "past the end of the file" in every, calls
+    assert n_last == -1 and _names_a_chunk(last, lists[1:]), calls
+    with pytest.raises(ValueError) as refused:
+        port_native.decode_bam_native(path, chunks=lists[0])
+    assert str(refused.value).startswith(f"{path}: chunk ")
+    capfd.readouterr()
+    assert len(port_native.decode_bam_native(path)["start"]) == kept
+    assert capfd.readouterr().err == (
+        f"warning: {path}: no BGZF EOF marker, the file may be truncated\n")
+    port_native.decode_bam_native(clean_path)
+    assert capfd.readouterr().err == ""
+
+
+def test_the_streaming_cli_fails_with_one_line_on_a_bam_cut_at_a_block_boundary(
+        cut_at_boundary, tmp_path, monkeypatch, capsys):
+    """germline-threshold in streaming mode (one task: with more, the
+    chunks' ends past the file make the streaming guard take the whole-file
+    path, which cannot tell the cut) on the BAM cut at a block boundary:
+    exit code 1, one error line naming the file and the chunk, no VCF
+    (before, exit code 0 and a VCF without the lost reads)."""
+    from guacamole_tpu_torch import cli
+    from guacamole_tpu_torch.callers import common
+
+    def whole_file(*_args, **_kwargs):
+        raise AssertionError("the whole-file path read the file")
+
+    monkeypatch.setattr(common, "load_read_source", whole_file)
+    path = cut_at_boundary[0]
+    out = tmp_path / "out.vcf"
+    rc = cli.main(["germline-threshold", "--reads", path, "--threshold",
+                   "25", "--parallelism", "1", "--device", "cpu", "--out",
                    str(out)])
     errors = [line for line in capsys.readouterr().err.splitlines()
               if line.startswith("guacamole-torch germline-threshold: error")]

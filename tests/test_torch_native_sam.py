@@ -3,8 +3,11 @@
 parse_sam_text (runtime/csrc/guac_runtime.cpp) reads every numeric field
 of a SAM whole and holds it to its range in the SAM spec (FLAG, POS,
 MAPQ, PNEXT, TLEN, @SQ LN), bounds max(POS - 1, 0) + CIGAR span by
-2^31 - 1 as the BAM parser does, and names the field and the line of a
-refusal. This file holds that:
+2^31 - 1 as the BAM parser does, holds QNAME, RNAME, RNEXT, CIGAR, SEQ and
+QUAL to the bytes SAMv1 section 1.4 allows them and every optional field
+to TAG:TYPE:VALUE (a line that joins two records fails there), refuses a
+placed read's MD tag where reads/mdtag.py's MdTag raises, and names the
+field and the line of a refusal. This file holds that:
 
 - every targeted mutant of tests/sam_mutants.py, made from the scale-0.02
   fixture's normal and germline SAMs, through the decode harness built
@@ -19,7 +22,9 @@ refusal. This file holds that:
   line ends decode to the JAX library's columns;
 - decode_sam_native raises ValueError naming the file, the field and the
   line, and `guacamole-torch germline-threshold --device cpu` fails with
-  one line and exit code 1.
+  one line and exit code 1;
+- an MD tag over an N gap decodes, with the reference bases the object
+  reader gives the read.
 """
 
 import os
@@ -32,6 +37,7 @@ import native_build
 import sam_mutants
 from guacamole_tpu.runtime import columnar as jax_columnar
 from guacamole_tpu_torch.gio.load import load_read_set
+from guacamole_tpu_torch.reads.mdtag import get_reference
 from guacamole_tpu_torch.reads.read import InputFilters
 from guacamole_tpu_torch.runtime import columnar as port_columnar
 from guacamole_tpu_torch.runtime import native as port_native
@@ -159,10 +165,13 @@ def _object_reader_raises(path):
 
 @pytest.mark.parametrize("mutant", sam_mutants.MUTANTS, ids=lambda m: m.name)
 def test_the_object_reader_and_the_native_decoder_agree(targeted, mutant):
-    """Where gio/sam.py raises (fields that are no numbers; the long ops'
-    MD tag no longer fits its CIGAR), the native decoder refuses too. The
-    range mutants it accepts (FLAG 70000, MAPQ 300 and -1, POS 2^31) the
-    native decoder refuses: ROADMAP.md section 3, known differences."""
+    """Where gio/sam.py raises (fields that are no numbers; an MD tag that
+    does not fit its CIGAR; a SEQ byte that is no UTF-8, a CIGAR with
+    whitespace), the native decoder refuses too. The mutants it accepts
+    (FLAG 70000, MAPQ 300 and -1, POS 2^31; a line that joins two records,
+    whose second QNAME it skips as no tag; bytes SAMv1 excludes from QNAME,
+    RNAME, RNEXT and QUAL) the native decoder refuses: ROADMAP.md section
+    3, known differences."""
     for sample in ("normal", "germline"):
         path, _ = targeted[sample][1][mutant.name]
         assert _object_reader_raises(path) == mutant.object_reader_raises
@@ -178,8 +187,8 @@ def test_random_mutants_that_both_readers_take_decode_alike(small, tmp_path):
     """The random mutants of the normal SAM: where a numeric field's new
     value makes the object reader raise, the native decoder refuses; where
     both readers take a mutant, they read the same mapped reads. (A flipped
-    byte that is no UTF-8, that joins two lines or that spoils an MD tag
-    makes the object reader raise where the native decoder reads the line:
+    byte that is no UTF-8 in an optional field's value, RG's say, makes
+    the object reader raise where the native decoder reads the line:
     ROADMAP.md section 3.)"""
     both = 0
     for path, what in sam_mutants.random_mutants(small["normal"],
@@ -249,7 +258,30 @@ def test_decode_sam_native_raises_naming_file_field_and_line(
     assert f" at line {line_no}: " in message and mutant.field in message
 
 
-@pytest.mark.parametrize("name", ["mapq_300", "pos_12abc"])
+@pytest.mark.parametrize("sample", ["normal", "germline"])
+def test_an_md_tag_over_an_n_gap_decodes_as_the_object_reader_reads_it(
+        small, tmp_path, sample):
+    """The last record made 50M100N50M with MD 100: the SAM decoder takes
+    it; the mapped reads' columns are the object reader's, and the read's
+    reference bases are get_reference's, N over the gap."""
+    with open(small[sample]) as fh:
+        text = _set_fields(fh.read(), 0, {5: "50M100N50M", 11: "MD:Z:100"})
+    path = tmp_path / "gap.sam"
+    path.write_text(text)
+    _assert_same_as_object_reader(str(path))
+    read = load_read_set(str(path), InputFilters.empty).reads[-1]
+    assert [e.op_char for e in read.cigar] == ["M", "N", "M"]
+    assert str(read.mdtag) == "100"
+    cols = port_native.decode_sam_native(str(path))
+    i = len(cols["start"]) - 1
+    mdref = bytes(cols["ev_mdref"][cols["ev_off"][i]:cols["ev_off"][i + 1]])
+    assert mdref == get_reference(read.mdtag, read.sequence, read.cigar,
+                                  allow_n_base=True)
+    assert b"N" * 100 in mdref
+
+
+@pytest.mark.parametrize("name", ["mapq_300", "pos_12abc", "md_deletion_length",
+                                  "joined_line", "seq_0x80"])
 def test_the_cli_fails_with_one_line(targeted, tmp_path, capsys, name):
     """germline-threshold on a SAM mutant: exit code 1, one error line that
     names the file, the field and the line, and no VCF."""
