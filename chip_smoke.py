@@ -121,13 +121,23 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     refused naming its field and line, and the germline BAM cut in its
     last data block, refused over its .bai chunks naming the chunk; any
     sanitizer report fails the run;
-12. times all four kernels once more at the median launch of their main
+12. reads and writes ADAM Parquet with the port's gio/adam.py (through
+    pyarrow, the port's dependency for ADAM alone; the phase prints its
+    version): a window of the germline BAM (ADAM_WINDOW, about 215,000
+    reads) loaded with the port's loader and written with write_adam,
+    read back with read_adam, every read equal to the one written, then
+    germline-threshold --threshold 25 on the .adam with device screens,
+    both counting kernels launched, its VCF equal byte for byte (apart
+    from ##source=) to the same command on the BAM window; then once more
+    into genotype Parquet (--out <dir>.adam), read back with the port's
+    reader, each row equal to its VCF record;
+13. times all four kernels once more at the median launch of their main
     path in this run (each main-path run prints the shapes its kernels
     were launched at: min / median / max), back to back and with a cold
     L2 cache, and csr_count_screen also at vaf-histogram's median launch
     in its full-count form; csr_compact's library form (torch.nonzero,
     then index_select) is timed and checked at its launch shape too;
-13. prints one JSON line of kernel results, then, as the last line,
+14. prints one JSON line of kernel results, then, as the last line,
     {"ok": true, "device": {...}}.
 
 Every launch count in the JSON line is read after a main-path run that
@@ -145,6 +155,7 @@ import faulthandler
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -2546,6 +2557,155 @@ def run_native_slice(manifest, out) -> None:
           f"{time.perf_counter() - phase_t0:.3f} s in all", flush=True)
 
 
+# The window of the scale-1.0 germline BAM that phase `adam` turns into
+# ADAM (about 215,000 reads): 20 kbp of deep1m's 1000x band, clear of the
+# spike and of the overflow clump at 301,000, and the first 60 kbp of
+# shallow8m, so that both contigs reach the ADAM file's dictionary and the
+# VCF header. A cut for time: the whole fixture would take minutes.
+ADAM_WINDOW = "deep1m:310000-330000,shallow8m:0-60000"
+ADAM_WINDOW_READS = (200_000, 300_000)
+
+
+def _vcf_calls(path):
+    """{(contig, start, ref, alt): (GT, AD, DP, GQ)} of a VCF's records;
+    a FORMAT field the record lacks is None."""
+    calls = {}
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            f = line.rstrip("\n").split("\t")
+            sample = dict(zip(f[8].split(":"), f[9].split(":")))
+            calls[(f[0], int(f[1]) - 1, f[3], f[4])] = tuple(
+                sample.get(k) for k in ("GT", "AD", "DP", "GQ"))
+    return calls
+
+
+def _genotype_row_call(row):
+    """The VCF fields one genotype Parquet row stands for."""
+    codes = {"NoCall": ".", "Ref": "0", "Alt": "1"}
+    gt = "/".join(codes.get(a, "2") for a in row["alleles"])
+    depth = row["readDepth"]
+    ad = dp = None
+    if depth is not None:
+        ad = (f"{row['referenceReadDepth'] or 0},"
+              f"{row['alternateReadDepth'] or 0}")
+        dp = str(depth)
+    gq = row["genotypeQuality"]
+    v = row["variant"]
+    check(v["end"] == v["start"] + 1, f"genotype row end {v['end']} for "
+          f"start {v['start']}")
+    return ((v["contig"]["contigName"], v["start"], v["referenceAllele"],
+             v["alternateAllele"]),
+            (gt, ad, dp, None if gq is None else str(gq)))
+
+
+def _without_source(path):
+    with open(path, "rb") as fh:
+        return [ln for ln in fh if not ln.startswith(b"##source=")]
+
+
+def run_adam_slice(kernel_records: dict, manifest, out) -> None:
+    """ADAM Parquet through the port's gio/adam.py on the card's host: a
+    window of the germline BAM, loaded with the port's loader, written as
+    .adam by the port's write_adam and read back whole, then
+    germline-threshold on the .adam with device screens (both counting
+    kernels launched) against the same
+    command on the BAM window, byte for byte apart from ##source=; then
+    into genotype Parquet, read back by the port's reader, each row equal
+    to its VCF record."""
+    from guacamole_tpu_torch.callers.streaming import ensure_bam_index
+    from guacamole_tpu_torch.gio import adam
+    from guacamole_tpu_torch.gio.load import load_reads
+    from guacamole_tpu_torch.loci.lociset import parse_loci
+    from guacamole_tpu_torch.reads.read import InputFilters
+
+    phase_t0 = time.perf_counter()
+    try:
+        import pyarrow
+    except ImportError as exc:
+        raise SmokeFailure(f"the port's ADAM I/O needs pyarrow: {exc}")
+    print(f"adam: pyarrow {pyarrow.__version__}", flush=True)
+    bam = os.path.join(FIXTURE_DIR, manifest["files"]["germline_bam"])
+    # The loader reads a window through a .bai beside the BAM; the
+    # streaming callers keep theirs in a cache. Lend it for the load.
+    sibling = bam + ".bai"
+    check(not os.path.exists(sibling), f"{sibling} exists")
+    shutil.copyfile(ensure_bam_index(bam), sibling)
+    t0 = time.perf_counter()
+    try:
+        reads, contigs = load_reads(bam, filters=InputFilters.create(
+            overlaps_loci=parse_loci(ADAM_WINDOW)))
+    finally:
+        os.remove(sibling)
+    load_s = time.perf_counter() - t0
+    check(ADAM_WINDOW_READS[0] <= len(reads) <= ADAM_WINDOW_READS[1],
+          f"the ADAM window {ADAM_WINDOW} holds {len(reads)} reads")
+    path = os.path.join(out, "window.adam")
+    t0 = time.perf_counter()
+    adam.write_adam(path, reads, contigs)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, back_contigs = adam.read_adam(path)
+    read_s = time.perf_counter() - t0
+    check(len(back) == len(reads) and back_contigs == contigs,
+          f"read_adam gave {len(back)} reads and {back_contigs} for "
+          f"{len(reads)} and {contigs}")
+    differing = [i for i, (a, b) in enumerate(zip(back, reads))
+                 if repr(a) != repr(b)]
+    check(not differing, f"read_adam gave {len(differing)} reads unlike "
+          f"those written, the first at {differing[:1]}")
+    del back
+
+    def vcf(name):
+        return os.path.join(out, name)
+
+    command = "germline-threshold"
+    args = ["--threshold", "25", "--loci", ADAM_WINDOW]
+    bam_wall = _run_cli(
+        command, ["--reads", bam, *args, "--out", vcf("adam_bam.vcf")],
+        host_screen=False)
+    wall, launches, transfers = _main_path_run(
+        command, ["--reads", path, *args, "--out", vcf("adam.vcf")],
+        ("csr_count_screen", "csr_compact"), kernel_records,
+        record_as="launches_adam", path="germline-threshold adam",
+    )
+    got, want = _without_source(vcf("adam.vcf")), _without_source(
+        vcf("adam_bam.vcf"))
+    n_records = len([ln for ln in got if not ln.startswith(b"#")])
+    check(got == want and n_records > 0,
+          f"the .adam run's VCF ({n_records} records) differs from the BAM "
+          "window's")
+    genotypes = os.path.join(out, "window.genotypes.adam")
+    parquet_wall = _run_cli(
+        command, ["--reads", path, *args, "--out", genotypes],
+        host_screen=False)
+    t0 = time.perf_counter()
+    rows = adam.read_genotypes_parquet(genotypes)
+    rows_s = time.perf_counter() - t0
+    calls = _vcf_calls(vcf("adam.vcf"))
+    from_rows = dict(_genotype_row_call(row) for row in rows)
+    check(len(rows) == len(calls) and from_rows == calls,
+          f"{len(rows)} genotype rows against {len(calls)} VCF records; "
+          f"first differing: "
+          f"{sorted(set(from_rows.items()) ^ set(calls.items()))[:3]}")
+    print(
+        f"adam: window {ADAM_WINDOW} of the germline BAM, {len(reads)} reads "
+        f"(loaded in {load_s:.3f} s); write_adam {write_s:.3f} s "
+        f"({os.path.getsize(os.path.join(path, 'part-r-00000.parquet'))} "
+        f"bytes), read_adam {read_s:.3f} s, every read equal to the one "
+        f"written; germline-threshold "
+        f"--threshold 25 --loci {ADAM_WINDOW}: BAM {bam_wall:.3f} s, .adam "
+        f"{wall:.3f} s wall, {n_records} records equal byte for byte apart "
+        f"from ##source=; launches {launches}; transfers {transfers}; "
+        f"--out .adam {parquet_wall:.3f} s, {len(rows)} genotype rows read "
+        f"back in {rows_s:.3f} s, each equal to its VCF record; "
+        + _describe_shapes("germline-threshold adam")
+        + f"; the phase {time.perf_counter() - phase_t0:.3f} s",
+        flush=True,
+    )
+
+
 def _loaded_forbidden():
     return sorted(
         m for m, mod in sys.modules.items()
@@ -2622,7 +2782,7 @@ def _profile_run(command, args, out) -> None:
 
 
 PHASES = ("build", "kernels", "threshold", "tools", "standard", "somatic",
-          "dense", "mesh", "multiprocess", "native")
+          "dense", "mesh", "multiprocess", "native", "adam")
 EXTRA_PHASES = ("profile", "stats_ll")
 
 
@@ -2646,7 +2806,7 @@ def main(argv) -> int:
     if set(phases) & {"kernels", "stats_ll"}:
         records.update(check_stats_ll(device))
     if set(phases) & {"threshold", "tools", "standard", "somatic", "dense",
-                      "mesh", "multiprocess", "native", "profile"}:
+                      "mesh", "multiprocess", "native", "adam", "profile"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
@@ -2665,6 +2825,8 @@ def main(argv) -> int:
             run_multiprocess_slice(manifest, out)
         if "native" in phases:
             run_native_slice(manifest, out)
+        if "adam" in phases:
+            run_adam_slice(records, manifest, out)
         if "profile" in phases:
             profile_callers(manifest, out)
     if "kernels" in phases:
