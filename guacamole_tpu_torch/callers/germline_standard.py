@@ -35,6 +35,7 @@ from guacamole_tpu_torch.likelihood import (
 from guacamole_tpu_torch.loci.locimap import LociMap
 from guacamole_tpu_torch.pileup.pileup import Pileup
 from guacamole_tpu_torch.utils import bases as Bases
+from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.utils.phred import success_probability_to_phred
 from guacamole_tpu_torch.variants.called import CalledAllele
 from guacamole_tpu_torch.variants.evidence import AlleleEvidence
@@ -310,6 +311,8 @@ def call_variants(
                             else 0.0
                         ),
                     ):
+                        trace.count("pack.tiles")
+                        trace.count("pack.rows", tile.L)
                         yield sample_name, sample_source, contig, tile
 
     def launch(item):
@@ -360,12 +363,13 @@ def call_variants(
                         pileup, min_alignment_quality, emit_ref
                     )
                 )
-        calls.extend(
-            calls_from_tile_rows(
-                sparse, dense_rows, sample_name, min_alignment_quality,
-                prefilter_min_likelihood=prefilter_min_likelihood,
+        with trace.span("confirm"):
+            calls.extend(
+                calls_from_tile_rows(
+                    sparse, dense_rows, sample_name, min_alignment_quality,
+                    prefilter_min_likelihood=prefilter_min_likelihood,
+                )
             )
-        )
 
     # Screen tiles pack on a prefetch thread and the sparse confirm tile
     # packs on an executor thread (the native packer releases the GIL),
@@ -389,7 +393,10 @@ def call_variants(
         else:
             # Per-tile async launches: each packed tile's screen launches
             # at once and overlaps the packing of the next.
-            screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
+            screen_iter = pipelined(
+                prefetch_iter(tiles(), ahead=2), launch,
+                span="dispatch.launch",
+            )
         for item, pending in screen_iter:
             sample_name, sample_source, contig, tile = item
             if pending is None:
@@ -449,9 +456,12 @@ def call_variants(
             screened(), launch_pack, max_in_flight=1
         ):
             confirm(name, src, ctg, fut.result())
-    calls.sort(
-        key=lambda c: (c.reference_contig, c.start, c.sample_name or "", c.allele)
-    )
+    with trace.span("sort"):
+        calls.sort(
+            key=lambda c: (
+                c.reference_contig, c.start, c.sample_name or "", c.allele
+            )
+        )
     return calls
 
 
@@ -648,18 +658,19 @@ def main(argv, _add_fns) -> int:
         debug=args.debug_genotype_filters,
     )
     progress("Called %d genotypes after filtering." % len(filtered))
-    records = _add_fns["multihost_finalize"](
-        mh, [called_allele_to_vcf_record(c) for c in filtered], args
-    )
-    if mh.is_writer:
-        write_variants(
-            records,
-            args.out,
-            contig_lengths=contig_lengths,
-            max_genotypes=args.max_genotypes,
-            vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+    with trace.span("write"):
+        records = _add_fns["multihost_finalize"](
+            mh, [called_allele_to_vcf_record(c) for c in filtered], args
         )
-        _add_fns["clear_shards_after_write"](mh, args)
-        if args.truth:
-            _add_fns["print_concordance"](args, records)
+        if mh.is_writer:
+            write_variants(
+                records,
+                args.out,
+                contig_lengths=contig_lengths,
+                max_genotypes=args.max_genotypes,
+                vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+            )
+            _add_fns["clear_shards_after_write"](mh, args)
+    if mh.is_writer and args.truth:
+        _add_fns["print_concordance"](args, records)
     return 0

@@ -30,6 +30,7 @@ from guacamole_tpu_torch.pack.tiles import LocusTile
 from guacamole_tpu_torch.pileup.pileup import Pileup
 from guacamole_tpu_torch.reads.read import MappedRead
 from guacamole_tpu_torch.utils import bases as Bases
+from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.variants.allele import Allele
 from guacamole_tpu_torch.ops.dispatch import (
     CompactScreen,
@@ -310,6 +311,8 @@ def _sample_tiles(sample_sources, task_loci, device, tile_size, max_alleles,
                 fields="screen",
                 skip_nibbles=skip_nib,
             ):
+                trace.count("pack.tiles")
+                trace.count("pack.rows", tile.L)
                 yield tile, sample_name, sample_source
 
 
@@ -384,21 +387,23 @@ def _screen_and_classify(
             compact_cap=None if (emit_ref or emit_no_call) else COMPACT_CAP,
         )
     calls: List[ThresholdCall] = []
-    for (tile, name, src), pending in screen_iter:
-        calls.extend(
-            call_tile(
-                tile,
-                name,
-                threshold_percent,
-                emit_ref,
-                emit_no_call,
-                device=device,
-                source=src,
-                pending=pending,
+    for seq, ((tile, name, src), pending) in enumerate(screen_iter):
+        with trace.span("classify", tile=seq):
+            calls.extend(
+                call_tile(
+                    tile,
+                    name,
+                    threshold_percent,
+                    emit_ref,
+                    emit_no_call,
+                    device=device,
+                    source=src,
+                    pending=pending,
+                )
             )
-        )
     # Deterministic emission order regardless of tiling.
-    calls.sort(key=lambda c: (c.contig, c.start, c.sample_name, c.allele))
+    with trace.span("sort"):
+        calls.sort(key=lambda c: (c.contig, c.start, c.sample_name, c.allele))
     return calls
 
 
@@ -424,7 +429,8 @@ def call_variants_streaming(
     + call_variants."""
     from guacamole_tpu_torch.callers.streaming import iter_task_sources
 
-    task_sources = iter_task_sources(path, filters, loci_partitions)
+    with trace.span("plan"):
+        task_sources = iter_task_sources(path, filters, loci_partitions)
     if task_sources is None:
         return None
 

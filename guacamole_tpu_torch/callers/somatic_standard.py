@@ -38,6 +38,7 @@ from guacamole_tpu_torch.likelihood import (
 from guacamole_tpu_torch.loci.locimap import LociMap
 from guacamole_tpu_torch.pileup.pileup import Pileup
 from guacamole_tpu_torch.utils import bases as Bases
+from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.variants.allele import Allele
 from guacamole_tpu_torch.variants.called import CalledSomaticAllele
 from guacamole_tpu_torch.variants.evidence import AlleleEvidence
@@ -499,6 +500,8 @@ def call_variants(
                     ll_screen_kind=2,
                     skip_nibbles=host_screen,
                 ):
+                    trace.count("pack.tiles")
+                    trace.count("pack.rows", tile.L)
                     yield contig, tile, tumor, normal
 
     def launch(item):
@@ -572,19 +575,20 @@ def call_variants(
                     max_read_depth,
                 )
             )
-        calls.extend(
-            somatic_calls_from_row_pairs(
-                tumor_tile,
-                batch_t,
-                normal_tile,
-                batch_n,
-                tumor,
-                odds_threshold,
-                min_alignment_quality,
-                filter_multi_allelic,
-                max_read_depth,
+        with trace.span("confirm"):
+            calls.extend(
+                somatic_calls_from_row_pairs(
+                    tumor_tile,
+                    batch_t,
+                    normal_tile,
+                    batch_n,
+                    tumor,
+                    odds_threshold,
+                    min_alignment_quality,
+                    filter_multi_allelic,
+                    max_read_depth,
+                )
             )
-        )
 
     # Device screen over the tumor sample; exact host kernel at survivors.
     # Three-way overlap: screen tiles pack on a prefetch thread, the two
@@ -610,7 +614,10 @@ def call_variants(
         else:
             # Per-tile async launches: each packed tile's screen launches
             # at once and overlaps the packing of the next.
-            screen_iter = pipelined(prefetch_iter(tiles(), ahead=2), launch)
+            screen_iter = pipelined(
+                prefetch_iter(tiles(), ahead=2), launch,
+                span="dispatch.launch",
+            )
         for (contig, tile, tumor, normal), pending in screen_iter:
             if pending is None:
                 continue
@@ -659,7 +666,8 @@ def call_variants(
                 contig, tile, candidates, tf.result(), nf.result(),
                 tumor, normal,
             )
-    calls.sort(key=lambda c: (c.reference_contig, c.start, c.allele))
+    with trace.span("sort"):
+        calls.sort(key=lambda c: (c.reference_contig, c.start, c.allele))
     return calls
 
 
@@ -952,16 +960,18 @@ def main(argv, _add_fns) -> int:
         debug=args.debug_genotype_filters,
     )
     progress("Computed %d genotypes after basic filtering." % len(filtered))
-    records = _add_fns["multihost_finalize"](
-        mh, [called_somatic_allele_to_vcf_record(c) for c in filtered], args
-    )
-    if mh.is_writer:
-        write_variants(
-            records,
-            args.out,
-            contig_lengths=normal_lengths,
-            max_genotypes=args.max_genotypes,
-            vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+    with trace.span("write"):
+        records = _add_fns["multihost_finalize"](
+            mh, [called_somatic_allele_to_vcf_record(c) for c in filtered],
+            args,
         )
-        _add_fns["clear_shards_after_write"](mh, args)
+        if mh.is_writer:
+            write_variants(
+                records,
+                args.out,
+                contig_lengths=normal_lengths,
+                max_genotypes=args.max_genotypes,
+                vcf_header_compat=getattr(args, "vcf_header_compat", ""),
+            )
+            _add_fns["clear_shards_after_write"](mh, args)
     return 0

@@ -21,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Tuple
 
 from guacamole_tpu_torch.loci.lociset import LociSet
+from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.utils.progress import progress
 
 
@@ -151,6 +152,10 @@ def iter_task_sources(
         cols = decode_bam_columnar(path, chunks=task_chunks[task])
         if cols is None:
             raise RuntimeError("native chunk decode failed")
+        trace.count("decode.tasks")
+        trace.count("decode.reads", cols.n)
+        trace.count("decode.bytes", sum(
+            (cend >> 16) - (cbeg >> 16) for cbeg, cend in task_chunks[task]))
         loci_set = (
             filters.overlaps_loci.result(cols.contig_lengths)
             if filters.overlaps_loci is not None
@@ -169,14 +174,22 @@ def iter_task_sources(
             filtered = filtered.select(filtered.is_mapped_mask)
         return ReadSource.from_columnar(filtered)
 
+    def traced_decode(task):
+        with trace.span("decode", task=task):
+            return decode(task)
+
     def generate():
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        with ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="guac-decode"
+        ) as pool:
             pending = {}
             for i, task in enumerate(tasks):
                 for j in range(i, min(i + 1 + prefetch, len(tasks))):
                     t = tasks[j]
                     if t not in pending:
-                        pending[t] = pool.submit(decode, t)
-                yield task, inverse[task], pending.pop(task).result()
+                        pending[t] = pool.submit(traced_decode, t)
+                with trace.wait("decode.wait", task=task):
+                    source = pending.pop(task).result()
+                yield task, inverse[task], source
 
     return generate()

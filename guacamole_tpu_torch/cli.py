@@ -20,6 +20,7 @@ from typing import List, Optional
 
 from guacamole_tpu_torch import __version__
 from guacamole_tpu_torch.parallel.multihost import DEFAULT_DCN_TIMEOUT_S
+from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.utils.progress import DelayedMessages, progress
 
 
@@ -217,9 +218,17 @@ def _add_device_args(p: argparse.ArgumentParser) -> None:
 
 
 def _resolve_device(args):
+    """The command's device; on a GPU also its CUDA context, which the
+    first command of a process creates here (the `start` span)."""
     from guacamole_tpu_torch.platform import device
 
-    return device(args.device)
+    with trace.span("start"):
+        dev = device(args.device)
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(dev)
+    return dev
 
 
 def _resolve_mesh(args):
@@ -462,22 +471,23 @@ def _try_streaming_threshold(args, loci_builder, reference, device,
         call_variants_streaming,
     )
 
-    try:
-        # Availability probing only: a non-BAM input (or malformed header)
-        # falls back to the whole-file loader, which reports its own
-        # errors properly.
-        from guacamole_tpu_torch.gio.bam import BamFile
+    with trace.span("plan"):
+        try:
+            # Availability probing only: a non-BAM input (or malformed
+            # header) falls back to the whole-file loader, which reports
+            # its own errors properly.
+            from guacamole_tpu_torch.gio.bam import BamFile
 
-        dictionary = dict(BamFile(args.reads).references)
-    except Exception:
-        return None
-    loci_set = loci_builder.result(dictionary)
-    partitions = _streaming_partitions(args, loci_set, args.reads)
-    if partitions is None:
-        return None
-    filters = InputFilters.create(
-        overlaps_loci=loci_builder, non_duplicate=True, has_mdtag=True
-    )
+            dictionary = dict(BamFile(args.reads).references)
+        except Exception:
+            return None
+        loci_set = loci_builder.result(dictionary)
+        partitions = _streaming_partitions(args, loci_set, args.reads)
+        if partitions is None:
+            return None
+        filters = InputFilters.create(
+            overlaps_loci=loci_builder, non_duplicate=True, has_mdtag=True
+        )
     return call_variants_streaming(
         args.reads,
         filters,
@@ -591,25 +601,26 @@ def cmd_germline_threshold(argv: List[str]) -> int:
             device=device,
         )
     progress("Called %d genotypes." % len(calls))
-    records = _multihost_finalize(
-        mh, [c.to_vcf_record() for c in calls], args
-    )
-    if mh.active:
-        progress(
-            "Merged %d genotypes across %d processes."
-            % (len(records), mh.process_count)
+    with trace.span("write"):
+        records = _multihost_finalize(
+            mh, [c.to_vcf_record() for c in calls], args
         )
-    if mh.is_writer:
-        write_variants(
-            records,
-            args.out,
-            contig_lengths=contig_lengths,
-            max_genotypes=args.max_genotypes,
-            vcf_header_compat=args.vcf_header_compat,
-        )
-        _clear_shards_after_write(mh, args)
-        if args.truth:
-            _print_concordance(args, records)
+        if mh.active:
+            progress(
+                "Merged %d genotypes across %d processes."
+                % (len(records), mh.process_count)
+            )
+        if mh.is_writer:
+            write_variants(
+                records,
+                args.out,
+                contig_lengths=contig_lengths,
+                max_genotypes=args.max_genotypes,
+                vcf_header_compat=args.vcf_header_compat,
+            )
+            _clear_shards_after_write(mh, args)
+    if mh.is_writer and args.truth:
+        _print_concordance(args, records)
     DelayedMessages.default.print()
     return 0
 
@@ -739,8 +750,10 @@ def _main(argv: Optional[List[str]]) -> int:
 
     tune_allocator()
     argv = list(sys.argv[1:] if argv is None else argv)
-    # GUAC_PROFILE_DIR: record a torch.profiler trace (host and, on a GPU,
-    # device activity) of the whole command into that directory.
+    # GUAC_PROFILE_DIR: trace the whole command under torch.profiler (host
+    # and, on a GPU, device activity) into that directory: trace.json
+    # with the program's spans of every thread added (utils/trace.py),
+    # and spans.json (seconds per span, counters, device idle by span).
     profile_dir = os.environ.get("GUAC_PROFILE_DIR")
     if not profile_dir:
         return _dispatch(argv)
@@ -755,7 +768,9 @@ def _main(argv: Optional[List[str]]) -> int:
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
-    progress(f"Wrote profile trace to {path}")
+    spans = os.path.join(profile_dir, "spans.json")
+    trace.export(path, spans)
+    progress(f"Wrote profile trace to {path} and span seconds to {spans}")
     return rc
 
 
@@ -775,7 +790,8 @@ def _dispatch(argv: List[str]) -> int:
         print(f"Valid commands: {', '.join(COMMANDS)}", file=sys.stderr)
         return 1
     try:
-        return COMMANDS[command][0](argv[1:])
+        with trace.span("call"):
+            return COMMANDS[command][0](argv[1:])
     except BrokenPipeError:
         return 1  # e.g. `guacamole-torch ... | head`
     except KeyboardInterrupt:

@@ -99,8 +99,11 @@ def build() -> List[BuildInfo]:
 def load_kernels() -> SimpleNamespace:
     """The kernels' C entry points, built on first use. Raises when a
     library cannot be built or loaded: on a CUDA tensor there is no
-    fallback."""
-    libs = {info.source: ctypes.CDLL(info.path) for info in build()}
+    fallback. The first call is a `start` span (utils/trace.py)."""
+    from guacamole_tpu_torch.utils import trace
+
+    with trace.span("start"):
+        libs = {info.source: ctypes.CDLL(info.path) for info in build()}
     ptr, i64, i32, f32 = (
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
     )
