@@ -153,6 +153,7 @@ def iter_task_sources(
         if cols is None:
             raise RuntimeError("native chunk decode failed")
         trace.count("decode.tasks")
+        trace.count("decode.chunks", len(task_chunks[task]))
         trace.count("decode.reads", cols.n)
         trace.count("decode.bytes", sum(
             (cend >> 16) - (cbeg >> 16) for cbeg, cend in task_chunks[task]))

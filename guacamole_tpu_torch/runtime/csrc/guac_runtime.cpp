@@ -28,6 +28,7 @@
 #include <memory>
 #include <string>
 #include <thread>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -176,7 +177,7 @@ const LibdeflateApi& libdeflate_api() {
 // runs once per 64 KiB BGZF block. Short-lived pool threads must call
 // release_tl_decomp() before exiting — thread_local storage is NOT freed
 // automatically for a raw pointer, and the chunked streaming decode
-// spawns a pool per chunk (the leak would grow with input size).
+// spawns a pool per call (the leak would grow with input size).
 thread_local void* tl_decomp = nullptr;
 
 void release_tl_decomp() {
@@ -266,6 +267,31 @@ struct Special {
   int32_t qual;
 };
 
+// A column that its decoder sizes once and then writes in full: resize()
+// leaves the new elements uninitialised, where std::vector's would
+// zero-fill every page on one thread first, for phase 2's threads to
+// write again. push_back and insert still store their values.
+template <class T>
+struct DefaultInitAllocator : std::allocator<T> {
+  template <class U>
+  struct rebind {
+    using other = DefaultInitAllocator<U>;
+  };
+  DefaultInitAllocator() = default;
+  template <class U>
+  DefaultInitAllocator(const DefaultInitAllocator<U>&) noexcept {}
+  template <class U>
+  void construct(U* p) noexcept {
+    ::new (static_cast<void*>(p)) U;
+  }
+  template <class U, class... Args>
+  void construct(U* p, Args&&... args) {
+    ::new (static_cast<void*>(p)) U(std::forward<Args>(args)...);
+  }
+};
+template <class T>
+using Column = std::vector<T, DefaultInitAllocator<T>>;
+
 // Decoded, columnar output. Grows while parsing; exported as raw buffers.
 struct Reads {
   // header
@@ -285,19 +311,19 @@ struct Reads {
   std::vector<int32_t> sample_id;
   // variable-length per read
   std::vector<int64_t> seq_off;    // n+1
-  std::vector<uint8_t> seq;        // ASCII bases
-  std::vector<uint8_t> qual;       // parallel to seq
+  Column<uint8_t> seq;             // ASCII bases
+  Column<uint8_t> qual;            // parallel to seq
   std::vector<int64_t> cigar_off;  // n+1
-  std::vector<uint32_t> cigar_len;
-  std::vector<uint8_t> cigar_op;
+  Column<uint32_t> cigar_len;
+  Column<uint8_t> cigar_op;
   std::vector<int64_t> md_off;     // n+1 offsets into md_text
-  std::vector<uint8_t> md_text;    // raw MD strings
+  Column<uint8_t> md_text;         // raw MD strings
   // event arrays (length = reference span per read)
   std::vector<int64_t> ev_off;     // n+1
-  std::vector<uint8_t> ev_kind;
-  std::vector<uint8_t> ev_base;
-  std::vector<uint8_t> ev_qual;
-  std::vector<uint8_t> ev_mdref;   // MD-expanded reference bases (N if none)
+  Column<uint8_t> ev_kind;
+  Column<uint8_t> ev_base;
+  Column<uint8_t> ev_qual;
+  Column<uint8_t> ev_mdref;        // MD-expanded reference bases (N if none)
   std::vector<Special> specials;
   std::vector<uint8_t> special_payload;
   std::vector<std::string> samples;  // sample names, indexed by sample_id
@@ -618,57 +644,64 @@ static int parse_bam_header(const std::vector<uint8_t>& u, size_t avail,
   return 0;
 }
 
-// Parse alignment records in u[pos, end_pos). Records starting before
-// end_pos are parsed fully (BAI chunk ends are record-aligned; the caller
-// guarantees the overhang bytes are inflated).
-// Two-phase record parse: a cheap serial scan finds record boundaries,
-// scalar fields, tag locations, and per-read array offsets; the heavy
-// per-byte work (seq nibble decode, MD expansion, event construction) then
-// fills pre-sized array slices in parallel over contiguous read ranges.
-static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
-                              size_t end_pos, Reads* r,
-                              const std::map<std::string, int>& rg_to_sample,
-                              int* default_sample_inout, int threads = 1) {
-  int default_sample = *default_sample_inout;
+// The records of one run of inflated bytes (a .bai chunk's, or the whole
+// file's): those that start in [begin, end). Each must end by limit, where
+// the run's bytes end (BAI chunk ends are record-aligned; the caller
+// inflates the overhang). A reason gives a record's offset from base,
+// where the run's bytes begin.
+struct RecordRange {
+  size_t base, begin, end, limit;
+};
 
-  struct RecMeta {
-    const uint8_t* rec;
-    const char* md;
-    int32_t md_len;
-    int32_t l_seq;
-    uint16_t n_cigar;
-    uint8_t l_read_name;
-    uint8_t consistent;
-    int64_t span;
-    int64_t pos0;
-    uint8_t mapq;
-    uint8_t placed;  // mapped with a reference and a position, as gio/bam.py
-    size_t at;       // offset of the record in the inflated stream
-  };
-  std::vector<RecMeta> metas;
-  metas.reserve(1024);
+// What the serial scan keeps of a record for phase 2.
+struct RecMeta {
+  const uint8_t* rec;
+  const char* md;
+  int32_t md_len;
+  int32_t l_seq;
+  uint16_t n_cigar;
+  uint8_t l_read_name;
+  uint8_t consistent;
+  int64_t span;
+  int64_t pos0;
+  uint8_t mapq;
+  uint8_t placed;  // mapped with a reference and a position, as gio/bam.py
+  size_t at;       // offset of the record in the inflated bytes
+};
 
-  // Every field is bounded by its record's block before it is used. A
-  // record that fails a check ends the parse: r->error names the field
-  // and the record's offset in the inflated stream, and phase 2 never
-  // sees a record that was not checked.
+// Refuses the record at `at` of range: r->error names the field and the
+// record's offset in its range.
+static bool reject_record(Reads* r, const RecordRange& range, size_t at,
+                          const std::string& why) {
+  r->error = "malformed BAM record at inflated byte " +
+             std::to_string(at - range.base) + ": " + why;
+  return false;
+}
+
+// Phase 1 of parse_bam_records over one range: a cheap serial scan finds
+// record boundaries, scalar fields, tag locations, and per-read array
+// offsets. Every field is bounded by its record's block before it is
+// used. A record that fails a check ends the scan, and phase 2 never sees
+// a record that was not checked.
+static bool scan_bam_records(const uint8_t* u, const RecordRange& range,
+                             Reads* r,
+                             const std::map<std::string, int>& rg_to_sample,
+                             int& default_sample,
+                             std::vector<RecMeta>& metas) {
   auto reject = [&](size_t at, const std::string& why) {
-    r->error = "malformed BAM record at inflated byte " +
-               std::to_string(at) + ": " + why;
-    return false;
+    return reject_record(r, range, at, why);
   };
-
-  // ---- Phase 1: serial boundary scan + scalar columns + offsets ----
-  while (pos < end_pos) {
+  size_t pos = range.begin;
+  while (pos < range.end) {
     const size_t at = pos;
-    if (pos + 4 > u.size())
+    if (pos + 4 > range.limit)
       return reject(at, "block_size cut by the end of the data");
     int32_t block_size;
     memcpy(&block_size, &u[pos], 4);
     if (block_size < 32)
       return reject(at, "block_size " + std::to_string(block_size) +
                             " below the 32 bytes of fixed fields");
-    if (pos + 4 + (size_t)block_size > u.size())
+    if (pos + 4 + (size_t)block_size > range.limit)
       return reject(at, "block_size " + std::to_string(block_size) +
                             " past the end of the data");
     const uint8_t* rec = &u[pos + 4];
@@ -829,21 +862,50 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     m.at = at;
     metas.push_back(m);
   }
-  *default_sample_inout = default_sample;
+  return true;
+}
+
+// Parse the alignment records of ranges, in order, into r, which holds a
+// header and no read yet. Two-phase record parse: the serial scan
+// (scan_bam_records) over every range, then the heavy per-byte work (seq
+// nibble decode, MD expansion, event construction) fills the columns, each
+// sized once, in parallel over contiguous read ranges. On a refusal,
+// r->error says why and *bad_range is the range of the record at fault:
+// the first refused in the scan, unless phase 2 refuses an MD tag in a
+// range before it, as a parse range by range would.
+static bool parse_bam_records(const uint8_t* u,
+                              const std::vector<RecordRange>& ranges,
+                              Reads* r,
+                              const std::map<std::string, int>& rg_to_sample,
+                              int threads, size_t* bad_range) {
+  int default_sample = -1;  // created lazily
+  std::vector<RecMeta> metas;
+  metas.reserve(1024);
+
+  // ---- Phase 1: serial boundary scan + scalar columns + offsets ----
+  size_t scanned = 0;  // ranges scanned whole
+  for (; scanned < ranges.size(); scanned++) {
+    const size_t kept = metas.size();
+    if (!scan_bam_records(u, ranges[scanned], r, rg_to_sample,
+                          default_sample, metas)) {
+      metas.resize(kept);  // phase 2 runs over the ranges before it
+      break;
+    }
+  }
+  *bad_range = scanned;
 
   size_t n_new = metas.size();
-  if (n_new == 0) return true;
-  int64_t first_read = (int64_t)(r->ref_id.size() - n_new);
+  if (n_new == 0) return scanned == ranges.size();
 
-  r->seq.resize((size_t)r->seq_off.back());
-  r->qual.resize((size_t)r->seq_off.back());
-  r->cigar_len.resize((size_t)r->cigar_off.back());
-  r->cigar_op.resize((size_t)r->cigar_off.back());
-  r->md_text.resize((size_t)r->md_off.back());
-  r->ev_kind.resize((size_t)r->ev_off.back());
-  r->ev_base.resize((size_t)r->ev_off.back());
-  r->ev_qual.resize((size_t)r->ev_off.back());
-  r->ev_mdref.resize((size_t)r->ev_off.back());
+  r->seq.resize((size_t)r->seq_off[n_new]);
+  r->qual.resize((size_t)r->seq_off[n_new]);
+  r->cigar_len.resize((size_t)r->cigar_off[n_new]);
+  r->cigar_op.resize((size_t)r->cigar_off[n_new]);
+  r->md_text.resize((size_t)r->md_off[n_new]);
+  r->ev_kind.resize((size_t)r->ev_off[n_new]);
+  r->ev_base.resize((size_t)r->ev_off[n_new]);
+  r->ev_qual.resize((size_t)r->ev_off[n_new]);
+  r->ev_mdref.resize((size_t)r->ev_off[n_new]);
 
   // ---- Phase 2: parallel per-read fills over contiguous ranges ----
   if (threads < 1) threads = 1;
@@ -862,7 +924,7 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
     auto& payload = range_payload[t];
     for (size_t k = lo; k < hi; k++) {
       const RecMeta& m = metas[k];
-      int64_t ri = first_read + (int64_t)k;
+      int64_t ri = (int64_t)k;
       const uint8_t* rec = m.rec;
       size_t p = 32 + m.l_read_name;
       const uint32_t* cigar = reinterpret_cast<const uint32_t*>(rec + p);
@@ -943,9 +1005,14 @@ static bool parse_bam_records(const std::vector<uint8_t>& u, size_t pos,
   for (const auto& fault : md_faults) {
     if (fault.first == SIZE_MAX) continue;
     const RecMeta& m = metas[fault.first];
-    return reject(m.at, "MD tag \"" + shown(m.md, m.md + m.md_len) + "\" " +
-                            fault.second);
+    size_t k = 0;
+    while (m.at >= ranges[k].limit) k++;  // ranges lie in order in u
+    *bad_range = k;
+    return reject_record(r, ranges[k], m.at,
+                         "MD tag \"" + shown(m.md, m.md + m.md_len) +
+                             "\" " + fault.second);
   }
+  if (scanned < ranges.size()) return false;  // the scan's refusal
 
   // Stitch per-range specials (ranges are in read order).
   for (int t = 0; t < nthreads; t++) {
@@ -970,13 +1037,13 @@ static bool parse_bam(const std::vector<uint8_t>& u, Reads* r,
     if (r->error.empty()) r->error = "truncated BAM header";
     return false;
   }
-  int default_sample = -1;  // created lazily
   r->seq_off.push_back(0);
   r->cigar_off.push_back(0);
   r->md_off.push_back(0);
   r->ev_off.push_back(0);
-  return parse_bam_records(u, header_end, u.size(), r, rg_to_sample,
-                           &default_sample, threads);
+  size_t bad_range;
+  return parse_bam_records(u.data(), {{0, header_end, u.size(), u.size()}},
+                           r, rg_to_sample, threads, &bad_range);
 }
 
 // Incremental BGZF reader over a file handle: reads and inflates blocks
@@ -1048,10 +1115,121 @@ struct BgzfStream {
   }
 };
 
+// Reads the compressed range of chunk [vbeg, vend) onto the end of cbuf in
+// ONE read — [c0, c1] plus two max-size blocks of slack (the block
+// containing the end voffset and one more for a record overhanging vend) —
+// and walks its block headers onto blocks: offsets in cbuf, and in the
+// pass's inflated bytes from ubase on. Sets *range to the records the
+// chunk covers there. Returns why the chunk cannot be walked, or "".
+static std::string walk_chunk(BgzfStream& stream, int64_t vbeg, int64_t vend,
+                              size_t header_end, std::vector<uint8_t>* cbuf,
+                              std::vector<BgzfBlock>* blocks, size_t ubase,
+                              RecordRange* range) {
+  uint64_t c0 = (uint64_t)vbeg >> 16;
+  uint64_t c1 = (uint64_t)vend >> 16;
+  size_t u0 = (uint64_t)vbeg & 0xffff;
+  size_t u1 = (uint64_t)vend & 0xffff;
+  size_t uend = SIZE_MAX;  // chunk-local uoffset of the chunk end
+  if ((size_t)c0 >= stream.fsize)
+    return "starts at compressed offset " + std::to_string(c0) +
+           ", at or past the end of the file (" +
+           std::to_string(stream.fsize) + " bytes)";
+  size_t guess_end = std::min(stream.fsize, (size_t)c1 + 2 * 65536 + 28);
+  if (guess_end <= (size_t)c0)
+    guess_end = std::min(stream.fsize, (size_t)c0 + 2 * 65536 + 28);
+  const size_t cbase = cbuf->size(), clen = guess_end - (size_t)c0;
+  cbuf->resize(cbase + clen);
+  uint8_t* cb = cbuf->data() + cbase;
+  if (fseek(stream.f, (long)c0, SEEK_SET) != 0)
+    return "cannot seek to compressed offset " + std::to_string(c0);
+  if (fread(cb, 1, clen, stream.f) != clen)
+    return "cannot read " + std::to_string(clen) +
+           " bytes at compressed offset " + std::to_string(c0);
+  const size_t first = blocks->size();
+  size_t loff = 0, uoff = 0, end_isize = 0;
+  bool have_end = false, slack_done = false;
+  while (!(have_end && slack_done) && loff + 28 <= clen) {
+    if (cb[loff] != 0x1f || cb[loff + 1] != 0x8b || !(cb[loff + 3] & 0x04))
+      break;
+    uint16_t xlen;
+    memcpy(&xlen, &cb[loff + 10], 2);
+    if (loff + 12 + xlen > clen) break;
+    size_t pos = loff + 12, hend = pos + xlen, bsize = 0;
+    while (pos + 4 <= hend) {
+      uint8_t si1 = cb[pos], si2 = cb[pos + 1];
+      uint16_t slen;
+      memcpy(&slen, &cb[pos + 2], 2);
+      if (pos + 4 + slen > hend) {
+        bsize = 0;  // a subfield overruns the header: malformed
+        break;
+      }
+      if (si1 == 66 && si2 == 67 && slen == 2) {
+        uint16_t bs;
+        memcpy(&bs, &cb[pos + 4], 2);
+        bsize = (size_t)bs + 1;
+      }
+      pos += 4 + slen;
+    }
+    if (bsize < 12 + (size_t)xlen + 8 || loff + bsize > clen) break;
+    uint32_t isize;
+    memcpy(&isize, &cb[loff + bsize - 4], 4);
+    if (isize > kBgzfMaxBlock) break;
+    size_t abs_off = (size_t)c0 + loff;
+    if (!have_end) {
+      if (abs_off == (size_t)c1) {
+        have_end = true;
+        uend = uoff + u1;
+        end_isize = isize;
+      } else if (abs_off > (size_t)c1) {
+        return "ends at compressed offset " + std::to_string(c1) +
+               ", where no block starts";
+      }
+    } else {
+      slack_done = true;  // the one slack block — include it
+    }
+    blocks->push_back({cbase + loff, bsize, ubase + uoff, isize});
+    uoff += isize;
+    loff += bsize;
+  }
+  // The walk must reach the block at c1, or the end of the file (the EOF
+  // convention below); it stops before either only at a block header it
+  // cannot read: a cut or corrupt file, or a .bai of another file.
+  if (!have_end && (size_t)c0 + loff != stream.fsize)
+    return "no readable block header at compressed offset " +
+           std::to_string((size_t)c0 + loff) +
+           ", before the chunk's end block at " + std::to_string(c1);
+  // A walk that read the whole file ends the chunk there only where the
+  // index says so (an index writes file size << 16 for the last end): an
+  // end further on is a chunk of a longer file, whose lost blocks' reads
+  // would go missing. Only the 28 bytes of an EOF marker, which hold no
+  // read, may be missing (the same file with its marker).
+  if ((size_t)c1 > stream.fsize + sizeof(kBgzfEof))
+    return "ends at compressed offset " + std::to_string(c1) +
+           ", past the end of the file (" + std::to_string(stream.fsize) +
+           " bytes) by more than an EOF marker";
+  if (u0 > (*blocks)[first].usize)
+    return "starts at byte " + std::to_string(u0) +
+           " of a block that inflates to " +
+           std::to_string((*blocks)[first].usize);
+  if (have_end && u1 > end_isize)
+    return "ends at byte " + std::to_string(u1) +
+           " of a block that inflates to " + std::to_string(end_isize);
+  // End voffset past the last data block (EOF convention): the walk
+  // reached the end of the file, and the chunk covers everything walked.
+  uend = std::min(uend, uoff);
+  size_t ustart = std::min(u0, uoff);
+  if (c0 == 0) ustart = std::max(ustart, header_end);
+  *range = {ubase, ubase + ustart, ubase + uend, ubase + uoff};
+  return "";
+}
+
 // Decode only the records covered by BGZF virtual-offset chunks (from a
 // .bai query; the TPU-native analog of the reference's BAM-index pushdown,
-// Read.scala:395-406). Only the chunks' byte ranges are read and inflated;
-// memory is O(header + largest chunk), not O(file).
+// Read.scala:395-406). Only the chunks' byte ranges are read and inflated,
+// all chunks in one pass: every chunk walked, one inflate pool over all
+// their blocks, one record parse over all their ranges, with its columns
+// sized once. Memory is O(header + the chunks' inflated bytes), not
+// O(file).
 static Reads* decode_bam_chunks(const char* path, int threads,
                                 int64_t n_chunks, const int64_t* vbeg,
                                 const int64_t* vend) {
@@ -1079,151 +1257,78 @@ static Reads* decode_bam_chunks(const char* path, int threads,
   r->cigar_off.push_back(0);
   r->md_off.push_back(0);
   r->ev_off.push_back(0);
-  int default_sample = -1;
 
-  std::vector<uint8_t> u;
-  std::vector<uint8_t> cbuf;  // one chunk's compressed byte range
+  // The first chunk at fault, and why. Each step below runs over the
+  // chunks before it and refuses an earlier one in its place, so the
+  // refusal is the one of a decode chunk by chunk: a decode that kept the
+  // records before the fault would lose reads in silence.
+  int64_t bad = n_chunks;
+  std::string why;
+  auto refuse = [&](int64_t c, const std::string& reason) {
+    bad = c;
+    why = "chunk " + std::to_string(c) + " [" + std::to_string(vbeg[c]) +
+          ", " + std::to_string(vend[c]) + "): " + reason;
+  };
+
+  // Walk the chunks in order, to the first that cannot be walked.
+  std::vector<uint8_t> cbuf;        // the chunks' compressed byte ranges
+  std::vector<BgzfBlock> blocks;    // coffset in cbuf, uoffset in u
+  std::vector<int64_t> block_chunk;
+  std::vector<RecordRange> ranges;  // one a chunk
+  size_t utotal = 0;
   for (int64_t c = 0; c < n_chunks; c++) {
-    uint64_t c0 = (uint64_t)vbeg[c] >> 16;
-    uint64_t c1 = (uint64_t)vend[c] >> 16;
-    size_t u0 = (uint64_t)vbeg[c] & 0xffff;
-    size_t u1 = (uint64_t)vend[c] & 0xffff;
-    u.clear();
-    size_t uend = SIZE_MAX;  // local uoffset of the chunk end
-    // A chunk that cannot be walked is refused, naming it: a decode that
-    // kept the records before the fault would lose reads in silence.
-    auto refuse = [&](const std::string& why) {
-      return decode_failed("chunk " + std::to_string(c) + " [" +
-                           std::to_string(vbeg[c]) + ", " +
-                           std::to_string(vend[c]) + "): " + why);
-    };
-    // Read the chunk's compressed range in ONE read — [c0, c1] plus two
-    // max-size blocks of slack (the block containing the end voffset and
-    // one more for a record overhanging vend) — then scan block headers
-    // and inflate with the libdeflate thread pool. Replaces the serial
-    // per-block fseek+zlib walk (the streaming path's decode was
-    // single-threaded per task while the whole-file path pooled).
-    if ((size_t)c0 >= stream.fsize)
-      return refuse("starts at compressed offset " + std::to_string(c0) +
-                    ", at or past the end of the file (" +
-                    std::to_string(stream.fsize) + " bytes)");
-    size_t guess_end =
-        std::min(stream.fsize, (size_t)c1 + 2 * 65536 + 28);
-    if (guess_end <= (size_t)c0)
-      guess_end = std::min(stream.fsize, (size_t)c0 + 2 * 65536 + 28);
-    cbuf.resize(guess_end - (size_t)c0);
-    if (fseek(stream.f, (long)c0, SEEK_SET) != 0)
-      return refuse("cannot seek to compressed offset " + std::to_string(c0));
-    if (fread(cbuf.data(), 1, cbuf.size(), stream.f) != cbuf.size())
-      return refuse("cannot read " + std::to_string(cbuf.size()) +
-                    " bytes at compressed offset " + std::to_string(c0));
-    std::vector<BgzfBlock> lbs;  // coffset local to cbuf
-    size_t loff = 0, uoff = 0, end_isize = 0;
-    bool have_end = false, slack_done = false;
-    while (!(have_end && slack_done) && loff + 28 <= cbuf.size()) {
-      if (cbuf[loff] != 0x1f || cbuf[loff + 1] != 0x8b ||
-          !(cbuf[loff + 3] & 0x04))
-        break;
-      uint16_t xlen;
-      memcpy(&xlen, &cbuf[loff + 10], 2);
-      if (loff + 12 + xlen > cbuf.size()) break;
-      size_t pos = loff + 12, hend = pos + xlen, bsize = 0;
-      while (pos + 4 <= hend) {
-        uint8_t si1 = cbuf[pos], si2 = cbuf[pos + 1];
-        uint16_t slen;
-        memcpy(&slen, &cbuf[pos + 2], 2);
-        if (pos + 4 + slen > hend) {
-          bsize = 0;  // a subfield overruns the header: malformed
-          break;
-        }
-        if (si1 == 66 && si2 == 67 && slen == 2) {
-          uint16_t bs;
-          memcpy(&bs, &cbuf[pos + 4], 2);
-          bsize = (size_t)bs + 1;
-        }
-        pos += 4 + slen;
-      }
-      if (bsize < 12 + (size_t)xlen + 8 || loff + bsize > cbuf.size()) break;
-      uint32_t isize;
-      memcpy(&isize, &cbuf[loff + bsize - 4], 4);
-      if (isize > kBgzfMaxBlock) break;
-      size_t abs_off = (size_t)c0 + loff;
-      if (!have_end) {
-        if (abs_off == (size_t)c1) {
-          have_end = true;
-          uend = uoff + u1;
-          end_isize = isize;
-        } else if (abs_off > (size_t)c1) {
-          return refuse("ends at compressed offset " + std::to_string(c1) +
-                        ", where no block starts");
-        }
-      } else {
-        slack_done = true;  // the one slack block — include it
-      }
-      lbs.push_back({loff, bsize, uoff, isize});
-      uoff += isize;
-      loff += bsize;
+    const size_t first = blocks.size();
+    RecordRange range;
+    const std::string fault = walk_chunk(stream, vbeg[c], vend[c], header_end,
+                                         &cbuf, &blocks, utotal, &range);
+    if (!fault.empty()) {
+      blocks.resize(first);
+      refuse(c, fault);
+      break;
     }
-    // The walk must reach the block at c1, or the end of the file (the EOF
-    // convention below); it stops before either only at a block header it
-    // cannot read: a cut or corrupt file, or a .bai of another file.
-    if (!have_end && (size_t)c0 + loff != stream.fsize)
-      return refuse("no readable block header at compressed offset " +
-                    std::to_string((size_t)c0 + loff) +
-                    ", before the chunk's end block at " + std::to_string(c1));
-    // A walk that read the whole file ends the chunk there only where the
-    // index says so (an index writes file size << 16 for the last end):
-    // an end further on is a chunk of a longer file, whose lost blocks'
-    // reads would go missing. Only the 28 bytes of an EOF marker, which
-    // hold no read, may be missing (the same file with its marker).
-    if ((size_t)c1 > stream.fsize + sizeof(kBgzfEof))
-      return refuse("ends at compressed offset " + std::to_string(c1) +
-                    ", past the end of the file (" +
-                    std::to_string(stream.fsize) +
-                    " bytes) by more than an EOF marker");
-    if (u0 > lbs[0].usize)
-      return refuse("starts at byte " + std::to_string(u0) +
-                    " of a block that inflates to " +
-                    std::to_string(lbs[0].usize));
-    if (have_end && u1 > end_isize)
-      return refuse("ends at byte " + std::to_string(u1) +
-                    " of a block that inflates to " +
-                    std::to_string(end_isize));
-    u.resize(uoff);
-    if (!lbs.empty()) {
-      std::atomic<size_t> next_b(0);
-      std::atomic<bool> ok(true);
-      auto worker = [&]() {
-        while (true) {
-          size_t i = next_b.fetch_add(1);
-          if (i >= lbs.size() || !ok.load()) break;
-          if (!inflate_block(cbuf, lbs[i], u.data() + lbs[i].uoffset))
-            ok.store(false);
-        }
-        release_tl_decomp();  // a pool spawns per chunk; see tl_decomp
-      };
-      int nthreads =
-          (int)std::min<size_t>(threads < 1 ? 1 : threads, lbs.size());
-      if (nthreads <= 1) {
-        worker();
-      } else {
-        std::vector<std::thread> pool;
-        for (int t = 0; t < nthreads; t++) pool.emplace_back(worker);
-        for (auto& th : pool) th.join();
-      }
-      if (!ok.load()) return refuse("malformed BGZF block");
-    }
-    // End voffset past the last data block (EOF convention): the walk
-    // reached the end of the file, and the chunk covers everything walked.
-    if (uend == SIZE_MAX) uend = u.size();
-    uend = std::min(uend, u.size());
-    size_t ustart = std::min(u0, u.size());
-    if (c0 == 0) ustart = std::max(ustart, header_end);
-    if (ustart >= uend) continue;
-    if (!parse_bam_records(u, ustart, uend, r.get(), rg_to_sample,
-                           &default_sample, threads))
-      return refuse(r->error);
+    block_chunk.resize(blocks.size(), c);
+    ranges.push_back(range);
+    utotal = range.limit;
   }
+
+  // Inflate every walked block with one thread pool; the first block that
+  // does not inflate refuses its chunk. The pool writes every byte of u.
+  Column<uint8_t> u;
+  u.resize(utotal);
+  if (!blocks.empty()) {
+    std::atomic<size_t> next_b(0), bad_block(SIZE_MAX);
+    auto worker = [&]() {
+      while (true) {
+        size_t i = next_b.fetch_add(1);
+        if (i >= blocks.size() || i > bad_block.load()) break;
+        if (!inflate_block(cbuf, blocks[i], u.data() + blocks[i].uoffset)) {
+          size_t seen = bad_block.load();
+          while (i < seen && !bad_block.compare_exchange_weak(seen, i)) {
+          }
+        }
+      }
+      release_tl_decomp();  // pool threads exit here; see tl_decomp
+    };
+    int nthreads =
+        (int)std::min<size_t>(threads < 1 ? 1 : threads, blocks.size());
+    if (nthreads <= 1) {
+      worker();
+    } else {
+      std::vector<std::thread> pool;
+      for (int t = 0; t < nthreads; t++) pool.emplace_back(worker);
+      for (auto& th : pool) th.join();
+    }
+    if (bad_block.load() != SIZE_MAX)
+      refuse(block_chunk[bad_block.load()], "malformed BGZF block");
+  }
+
+  // Parse the records of the chunks before the first at fault in one pass.
+  ranges.resize(std::min<size_t>(ranges.size(), (size_t)bad));
+  size_t bad_range = 0;
+  if (!parse_bam_records(u.data(), ranges, r.get(), rg_to_sample, threads,
+                         &bad_range))
+    refuse((int64_t)bad_range, r->error);
+  if (bad < n_chunks) return decode_failed(why);
   return r.release();
 }
 

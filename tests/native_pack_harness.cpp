@@ -5,6 +5,7 @@
 //
 //   native_pack_harness BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START]]]]]
 //   native_pack_harness BAM ROUNDS events [THREADS]
+//   native_pack_harness BAM ROUNDS chunks THREADS VBEG VEND [VBEG VEND]...
 //
 // Decodes BAM with guac_decode_bam (on THREADS threads, default 2). For
 // each mode of the comma-separated list MODES (default 1) it packs each
@@ -28,6 +29,12 @@
 // guac_build_events on THREADS threads (default 16), ROUNDS times, and
 // prints one line: `events`, the reads, the events and the specials; the
 // arrays must equal the decoder's own every time.
+//
+// With `chunks` it decodes the chunk list VBEG VEND ... (BGZF virtual
+// offsets, begin and end of each chunk in turn) with guac_decode_bam_chunks
+// on THREADS threads, ROUNDS times, and prints one line: `chunks`, the
+// reads, the events and the specials; every round must decode the same
+// columns.
 
 #include <chrono>
 #include <cstdint>
@@ -39,6 +46,8 @@
 
 extern "C" {
 void* guac_decode_bam(const char* path, int threads);
+void* guac_decode_bam_chunks(const char* path, int threads, int64_t n_chunks,
+                             const int64_t* vbeg, const int64_t* vend);
 const char* guac_last_error();
 int64_t guac_num_reads(void* h);
 int64_t guac_num_refs(void* h);
@@ -228,14 +237,73 @@ static int events(void* reads, int rounds, int threads) {
   return 0;
 }
 
+// A sum of every byte of a decode's columns and specials, weighted by
+// position so a moved byte shows.
+static unsigned long long decode_checksum(void* reads) {
+  const uint8_t* (*bytes[])(void*, int64_t*) = {
+      guac_seq,     guac_qual,    guac_cigar_op, guac_md_text,
+      guac_ev_kind, guac_ev_base, guac_ev_qual,  guac_ev_mdref,
+      guac_special_payload};
+  unsigned long long sum = 0;
+  for (auto column_of : bytes) {
+    int64_t n = 0;
+    const uint8_t* p = column_of(reads, &n);
+    for (int64_t i = 0; i < n; i++)
+      sum = sum * 31 + (unsigned long long)p[i] * (uint64_t)(i % 251 + 1);
+  }
+  int64_t n = 0;
+  const int64_t* starts = guac_start(reads, &n);
+  const int32_t* mismatches = guac_mismatches(reads, &n);
+  for (int64_t i = 0; i < n; i++)
+    sum = sum * 31 + (unsigned long long)starts[i] + (uint32_t)mismatches[i];
+  const uint32_t* cigar_len = guac_cigar_len(reads, &n);
+  for (int64_t i = 0; i < n; i++) sum = sum * 31 + cigar_len[i];
+  return sum;
+}
+
+static int chunks(const char* path, int rounds, int threads,
+                  const std::vector<int64_t>& vbeg,
+                  const std::vector<int64_t>& vend) {
+  unsigned long long first = 0;
+  for (int round = 0; round < rounds; round++) {
+    void* reads = guac_decode_bam_chunks(path, threads, (int64_t)vbeg.size(),
+                                         vbeg.data(), vend.data());
+    if (reads == nullptr) {
+      fprintf(stderr, "%s: %s\n", path, guac_last_error());
+      return 3;
+    }
+    unsigned long long sum = decode_checksum(reads);
+    if (round == 0) {
+      first = sum;
+      int64_t n = guac_num_reads(reads);
+      printf("chunks %lld %lld %lld\n", (long long)n,
+             (long long)column(guac_ev_off, reads)[n],
+             (long long)guac_num_specials(reads));
+    }
+    guac_free_reads(reads);
+    if (sum != first) return 5;
+  }
+  return 0;
+}
+
 int main(int argc, char** argv) {
   if (argc < 3) {
     fprintf(stderr,
             "usage: %s BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START]]]]]"
             "\n"
-            "       %s BAM ROUNDS events [THREADS]\n",
-            argv[0], argv[0]);
+            "       %s BAM ROUNDS events [THREADS]\n"
+            "       %s BAM ROUNDS chunks THREADS VBEG VEND [VBEG VEND]...\n",
+            argv[0], argv[0], argv[0]);
     return 2;
+  }
+  if (argc > 3 && std::string(argv[3]) == "chunks") {
+    if (argc < 7 || (argc - 5) % 2 != 0) return 2;
+    std::vector<int64_t> vbeg, vend;
+    for (int i = 5; i + 1 < argc; i += 2) {
+      vbeg.push_back(atoll(argv[i]));
+      vend.push_back(atoll(argv[i + 1]));
+    }
+    return chunks(argv[1], atoi(argv[2]), atoi(argv[4]), vbeg, vend);
   }
   bool build_events = argc > 3 && std::string(argv[3]) == "events";
   const char* threads = build_events ? (argc > 4 ? argv[4] : "16")

@@ -60,6 +60,7 @@ DEPARTURES = {
         ('            raise RuntimeError("native chunk decode failed")\n',
          '            raise RuntimeError("native chunk decode failed")\n'
          '        trace.count("decode.tasks")\n'
+         '        trace.count("decode.chunks", len(task_chunks[task]))\n'
          '        trace.count("decode.reads", cols.n)\n'
          '        trace.count("decode.bytes", sum(\n'
          "            (cend >> 16) - (cbeg >> 16) for cbeg, cend in "

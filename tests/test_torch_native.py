@@ -9,8 +9,9 @@ in the package. This file holds that copy:
 - free of out-of-bounds reads on malformed input: a standalone harness
   (tests/native_decode_harness.cpp) built from the copy with
   AddressSanitizer runs guac_decode_bam, guac_decode_bam_chunks (one
-  chunk over the whole file, .bai chunks, and chunks that start inside a
-  block) and guac_decode_sam over crafted, truncated and mutated inputs,
+  chunk over the whole file, .bai chunks, among them a task's list of 8
+  chunks or more, and chunks that start inside a block) and
+  guac_decode_sam over crafted, truncated and mutated inputs,
   with no sanitizer report, and the whole-file decoder returns no handle
   wherever the input is malformed (malformed records:
   tests/test_torch_native_records.py);
@@ -18,10 +19,16 @@ in the package. This file holds that copy:
   harness (tests/native_pack_harness.cpp) built from the copy with
   ThreadSanitizer packs the fixture's contigs on the packer's threads in
   each of its four modes (whole contigs for the CSR mode, windows for the
-  dense ones) and rebuilds the event arrays with guac_build_events on 16
-  threads, with no sanitizer report;
+  dense ones), rebuilds the event arrays with guac_build_events on 16
+  threads and decodes a task's list of nine .bai chunks with
+  guac_decode_bam_chunks on 16 threads, with no sanitizer report;
 - equal to the JAX package's library on well-formed input, column for
-  column (whole file, .bai chunks, SAM);
+  column (whole file, .bai chunks, a task's list of nine .bai chunks,
+  SAM), decoded where malloc fills every allocation with a byte that is
+  not 0, so that no byte a decoder sizes is left unwritten; that list, which guac_decode_bam_chunks decodes in one pass, equal
+  to its chunks decoded one by one, one after another; a malformed record
+  in its ninth chunk refused naming that chunk, as a decode of the chunk
+  alone names it;
 - enough on its own: the package, copied alone into a directory with no
   repo around it, builds its library from its own sources and decodes.
 """
@@ -29,6 +36,7 @@ in the package. This file holds that copy:
 import dataclasses
 import json
 import os
+import pickle
 import shutil
 import struct
 import subprocess
@@ -37,6 +45,7 @@ import sys
 import numpy as np
 import pytest
 
+import bam_mutants
 from guacamole_tpu.runtime import columnar as jax_columnar
 from guacamole_tpu.utils.simulate import make_scale_fixture
 from guacamole_tpu_torch.callers.streaming import ensure_bam_index
@@ -114,6 +123,18 @@ def small(tmp_path_factory):
     return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
 
 
+@pytest.fixture(scope="module")
+def denser(tmp_path_factory):
+    """The fixture at scale 0.02, depth 0.25, seed 7: its germline BAM
+    (386,829 bytes, 21,146 reads) is dense enough that reads straddle the
+    .bai's 16 kbp bins, so the chunk list of a task's loci holds the
+    fragments of the bins above them, as at full depth."""
+    out = str(tmp_path_factory.mktemp("denser"))
+    manifest = make_scale_fixture(out, scale=0.02, depth_scale=0.25, seed=7)
+    assert manifest["counts"]["germline"] == 21_146
+    return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
+
+
 def _block_offsets(data: bytes):
     """Start of every BGZF block of a well-formed file."""
     starts, off = [], 0
@@ -185,29 +206,43 @@ def _inputs(bam_path, sam_path, n_mutants, out):
     return inputs, bam
 
 
-def _chunk_lists(bam_path, bam, regions):
-    """Chunk lists for guac_decode_bam_chunks: the .bai chunks of each
-    region, and three single chunks that start inside a block (a .bai
-    whose virtual offsets do not land on a block)."""
+def _chunk_lists(bam_path, bam, tasks):
+    """Chunk lists for guac_decode_bam_chunks: the merged .bai chunks of
+    each task's regions, as the streaming callers build a task's list, and
+    three single chunks that start inside a block (a .bai whose virtual
+    offsets do not land on a block)."""
     index = BamIndex(ensure_bam_index(bam_path))
-    lists = [optimize_chunks([index.chunks_for_region(*region)])
-             for region in regions]
+    lists = [optimize_chunks([index.chunks_for_region(*region)
+                              for region in task])
+             for task in tasks]
     starts = set(_block_offsets(bam))
     inside = [c for c in (1, 3_001, len(bam) // 2 + 7) if c not in starts]
     return lists + [[(c << 16, len(bam) << 16)] for c in inside]
 
 
-@pytest.mark.parametrize("sample,mutants,regions", [
+@pytest.mark.parametrize("fixture,sample,mutants,regions", [
     # the input of the reproduction: one data block
-    ("normal", 300, ((0, 0, 5_000), (0, 5_000, 12_000), (0, 15_000, 20_000))),
+    pytest.param("small", "normal", 300, (
+        ((0, 0, 5_000),), ((0, 5_000, 12_000),), ((0, 15_000, 20_000),)),
+        id="normal-300-regions0"),
     # 15 blocks, regions on both contigs
-    ("germline", 200, ((0, 0, 5_000), (0, 6_000, 8_000), (1, 40_000, 70_000))),
+    pytest.param("small", "germline", 200, (
+        ((0, 0, 5_000),), ((0, 6_000, 8_000),), ((1, 40_000, 70_000),)),
+        id="germline-200-regions1"),
+    # 20 blocks; a task's three 16 kbp windows, whose list of 8 chunks
+    # ends in the fragments of higher bins and the file's last records
+    pytest.param("denser", "germline", 240, (
+        ((0, 0, 16_384), (1, 0, 16_384), (1, 147_456, 163_840)),),
+        id="task-240-regions2"),
 ])
 def test_copy_reads_no_byte_outside_its_buffers(
-        harness, small, tmp_path, sample, mutants, regions):
-    bam_path = small[f"{sample}_bam"]
-    inputs, bam = _inputs(bam_path, small[sample], mutants, str(tmp_path))
+        harness, request, tmp_path, fixture, sample, mutants, regions):
+    files = request.getfixturevalue(fixture)
+    bam_path = files[f"{sample}_bam"]
+    inputs, bam = _inputs(bam_path, files[sample], mutants, str(tmp_path))
     lists = _chunk_lists(bam_path, bam, regions)
+    assert max(len(chunks) for chunks in lists[:len(regions)]) >= (
+        8 if fixture == "denser" else 1)
     chunks_file = tmp_path / "chunks.txt"
     chunks_file.write_text("".join(
         " ".join(f"{b} {e}" for b, e in chunk_list) + "\n"
@@ -326,6 +361,28 @@ def test_copy_builds_events_without_a_data_race(harnesses, fx):
     assert int(n_events) > int(n_reads) and int(n_specials) > 0
 
 
+def test_copy_decodes_a_tasks_chunks_without_a_data_race(harnesses, fx):
+    """guac_decode_bam_chunks over a task's nine chunks on 16 threads,
+    twice: one inflate pool over every chunk's blocks and one phase 2 over
+    every chunk's records, with no ThreadSanitizer report, the same columns
+    both times, and the reads, events and specials of the port's decode."""
+    path = fx["germline_bam"]
+    chunks = _task_chunks(path)
+    run = subprocess.run(
+        [harnesses["tsan"], path, "2", "chunks", "16",
+         *(str(v) for chunk in chunks for v in chunk)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
+    )
+    assert "ThreadSanitizer" not in run.stderr, run.stderr[-6000:]
+    assert run.returncode == 0, run.stderr[-6000:]
+    word, *numbers = run.stdout.split()
+    cols = port_columnar.decode_bam_columnar(path, chunks=chunks)
+    assert word == "chunks" and list(map(int, numbers)) == [
+        cols.n, int(cols.ev_off[-1]), len(cols.sp_read)]
+    assert cols.n > 0 and len(cols.sp_read) > 0
+
+
 # --- the copy against the JAX package's library ---------------------------
 
 
@@ -355,20 +412,144 @@ def _bai_chunks(path):
                             index.chunks_for_region(1, 100_000, 120_000)])
 
 
-@pytest.mark.parametrize("mode", ["whole", "bai", "sam"])
-def test_copy_decodes_what_the_jax_library_decodes(fx, mode):
+def _task_chunks(path):
+    """A task's chunk list as the streaming callers build one: the merged
+    .bai chunks of three 16 kbp windows and of the last record's locus.
+    Nine chunks: deep1m's window (most of its reads, and its insertions),
+    shallow8m's first window's bin, fragments of the bins above it, later
+    in the file, among them the bin of the window at 49,152 (its
+    deletions), and the last record's, ninth."""
+    bam = bam_mutants.read_bam(path)
+    ref_id, pos = struct.unpack_from("<ii", bam.stream, bam.records[-1] + 4)
+    index = BamIndex(ensure_bam_index(path))
+    chunks = optimize_chunks([index.chunks_for_region(0, 0, 16_384),
+                              index.chunks_for_region(1, 0, 16_384),
+                              index.chunks_for_region(1, 49_152, 65_536),
+                              index.chunks_for_region(ref_id, pos, pos + 1)])
+    assert len(chunks) == 9
+    return chunks
+
+
+_PERTURBED = r"""
+import pickle, json, sys
+from guacamole_tpu_torch.runtime import columnar
+
+path, chunks, out = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+cols = (columnar.decode_sam_columnar(path) if path.endswith(".sam") else
+        columnar.decode_bam_columnar(path, chunks=chunks))
+with open(out, "wb") as fh:
+    pickle.dump(cols, fh)
+"""
+
+
+def _perturbed_decode(path, chunks, tmp_path):
+    """The port's decode of path in a process whose malloc fills every
+    allocation with 0xa5 (glibc's MALLOC_PERTURB_): the decoders size their
+    byte columns without a zero-fill, and a byte they leave unwritten
+    shows."""
+    out = tmp_path / "cols.pickle"
+    run = subprocess.run(
+        [sys.executable, "-c", _PERTURBED, path, json.dumps(chunks), str(out)],
+        env=dict(os.environ, MALLOC_PERTURB_="90"), capture_output=True,
+        text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    with open(out, "rb") as fh:
+        return pickle.load(fh)
+
+
+@pytest.mark.parametrize("mode", ["whole", "bai", "sam", "task"])
+def test_copy_decodes_what_the_jax_library_decodes(fx, tmp_path, mode):
     if mode == "sam":
-        port = port_columnar.decode_sam_columnar(fx["germline"])
+        port = _perturbed_decode(fx["germline"], None, tmp_path)
         ref = jax_columnar.decode_sam_columnar(fx["germline"])
     else:
-        chunks = _bai_chunks(fx["germline_bam"]) if mode == "bai" else None
-        port = port_columnar.decode_bam_columnar(fx["germline_bam"],
-                                                 chunks=chunks)
+        chunks = {"bai": _bai_chunks, "task": _task_chunks}.get(
+            mode, lambda _: None)(fx["germline_bam"])
+        port = _perturbed_decode(fx["germline_bam"], chunks, tmp_path)
         ref = jax_columnar.decode_bam_columnar(fx["germline_bam"],
                                                chunks=chunks)
-        if chunks is not None:
+        if mode == "bai":
             assert 0 < ref.n < 84_296 // 2
+        elif mode == "task":
+            assert 0 < ref.n < 84_296 and set(ref.sp_kind) == {1, 2}
     _assert_same_columns(port, ref)
+
+
+# Offset columns (n + 1 entries) and the column they index.
+_OFFSETS = {"seq_off": "seq", "cigar_off": "cigar_len", "md_off": "md_text",
+            "ev_off": "ev_kind"}
+
+
+def _one_after_another(parts):
+    """The ColumnarReads of decodes one after another: per-read and data
+    columns joined, offsets and specials moved past the parts before."""
+    joined = {}
+    for field in dataclasses.fields(parts[0]):
+        values = [getattr(p, field.name) for p in parts]
+        if not isinstance(values[0], np.ndarray):
+            assert all(v == values[0] for v in values), field.name
+            joined[field.name] = values[0]
+            continue
+        if field.name in _OFFSETS:
+            size = [len(getattr(p, _OFFSETS[field.name])) for p in parts]
+            values = [values[0][:1]] + [v[1:] + before for v, before in
+                                         zip(values, np.cumsum([0] + size))]
+        elif field.name in ("sp_read", "sp_payload_offset"):
+            size = [p.n if field.name == "sp_read" else
+                    len(p.special_payload) for p in parts]
+            values = [v + before for v, before in
+                      zip(values, np.cumsum([0] + size))]
+        joined[field.name] = np.concatenate(values).astype(values[0].dtype)
+    return dataclasses.replace(parts[0], **joined)
+
+
+def test_a_tasks_chunks_decode_in_one_pass_as_one_by_one(fx):
+    """The one pass over a task's nine chunks gives the reads of its
+    chunks decoded alone, one after another: the same reads in the same
+    order, column for column, and the same specials."""
+    path = fx["germline_bam"]
+    chunks = _task_chunks(path)
+    parts = [port_columnar.decode_bam_columnar(path, chunks=[chunk])
+             for chunk in chunks]
+    assert all(p.n > 0 for p in parts)
+    _assert_same_columns(
+        port_columnar.decode_bam_columnar(path, chunks=chunks),
+        _one_after_another(parts))
+
+
+@pytest.mark.parametrize("name", ["l_seq_negative", "block_size_past_end",
+                                  "md_ended_early"])
+def test_a_malformed_record_in_a_late_chunk_is_refused_naming_it(
+        fx, tmp_path, name):
+    """The germline BAM's last record made malformed (a field the scan
+    refuses, a block past the chunk's bytes, an MD tag that phase 2
+    refuses): the one pass over a task's nine chunks refuses naming the
+    ninth, its two virtual offsets and the record's inflated byte from the
+    chunk's first block: the reason a decode of that chunk alone gives."""
+    clean = fx["germline_bam"]
+    bam = bam_mutants.read_bam(clean)
+    mutant = next(m for m in bam_mutants.MUTANTS if m.name == name)
+    path = str(tmp_path / f"{name}.bam")
+    with open(path, "wb") as fh:
+        fh.write(bam_mutants.make_mutant(bam, mutant))
+    clean_chunks = _task_chunks(clean)
+    chunks = bam_mutants.chunks_of(bam, clean_chunks, os.path.getsize(path))
+    last = bam.records[-1]
+    block = max(i for i, u in enumerate(bam.ustarts) if u <= last)
+    vlast = (bam.coffsets[block] << 16) | (last - bam.ustarts[block])
+    k = next(i for i, (b, e) in enumerate(clean_chunks) if b <= vlast < e)
+    assert k >= 4
+    b, e = chunks[k]
+    at = last - bam.ustarts[bam.coffsets.index(b >> 16)]
+    with pytest.raises(ValueError) as in_the_list:
+        port_native.decode_bam_native(path, chunks=chunks)
+    with pytest.raises(ValueError) as alone:
+        port_native.decode_bam_native(path, chunks=[(b, e)])
+    reason = str(in_the_list.value)
+    assert reason.startswith(f"{path}: chunk {k} [{b}, {e}): malformed BAM "
+                             f"record at inflated byte {at}: "), reason
+    assert mutant.field in reason
+    assert reason.replace(f"chunk {k} ", "chunk 0 ", 1) == str(alone.value)
 
 
 # --- the package alone ----------------------------------------------------

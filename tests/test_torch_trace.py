@@ -38,14 +38,16 @@ def run_threshold(bam, out):
 def traced(fixture_bam, tmp_path_factory):
     """One germline-threshold call under a CPU profiler session, with
     device screens (the kernels' plain versions): its records, counters,
-    the reads decode_bam_columnar returned, and its VCF."""
+    the reads decode_bam_columnar returned and the chunks it was given, and
+    its VCF."""
     out = str(tmp_path_factory.mktemp("traced") / "traced.vcf")
-    decoded = []
+    decoded, chunks = [], []
     real = columnar.decode_bam_columnar
 
     def counting(*args, **kwargs):
         cols = real(*args, **kwargs)
         decoded.append(cols.n)
+        chunks.append(len(kwargs["chunks"]))
         return cols
 
     mp = pytest.MonkeyPatch()
@@ -58,7 +60,7 @@ def traced(fixture_bam, tmp_path_factory):
         mp.undo()
     snap = trace.snapshot()
     return {"spans": snap["spans"], "counters": snap["counters"],
-            "decoded": decoded, "vcf": out}
+            "decoded": decoded, "chunks": chunks, "vcf": out}
 
 
 def test_no_profiler_records_nothing(fixture_bam, tmp_path, monkeypatch):
@@ -117,6 +119,18 @@ def test_traced_counters_match_the_tiles_and_reads(traced):
     assert {s["task"] for s in spans if s["name"] == "pack"} <= {
         s["task"] for s in spans if s["name"] == "decode"}
     assert tiles("classify") == got
+
+
+def test_decode_chunks_counts_each_tasks_chunk_list(traced):
+    """decode.chunks is the length of every task's chunk list, which one
+    pass of the native decoder covers: at least one a task, so
+    decode.chunks less decode.tasks is the passes a decode chunk by chunk
+    would have added."""
+    counters = traced["counters"]
+    assert counters["decode.chunks"] == sum(traced["chunks"])
+    assert len(traced["chunks"]) == counters["decode.tasks"] == 4
+    assert all(n >= 1 for n in traced["chunks"])
+    assert counters["decode.chunks"] >= counters["decode.tasks"]
 
 
 def test_traced_call_writes_the_same_vcf(traced, fixture_bam, tmp_path,
@@ -213,6 +227,8 @@ def test_profile_dir_writes_spans_of_every_thread(fixture_bam, tmp_path,
     assert {(row["name"], row["thread"]) for row in spans["spans"]} >= {
         ("call", "MainThread"), ("pack", "guac-prefetch")}
     assert spans["counters"]["pack.tiles"] > 1
+    assert spans["counters"]["decode.chunks"] >= (
+        spans["counters"]["decode.tasks"]) == 4
     device = spans["device"]
     assert device["calls_s"] > 0
     # On the CPU nothing runs on a device: the whole call is idle, put
