@@ -549,32 +549,35 @@ def call_variants(
                 batch_t.append(ti)
                 batch_n.append(ni)
                 continue
-            tumor_pileup = (
-                tumor.pileup_at(
-                    contig, locus, reference_base=int(tumor_tile.ref_base[ti])
+            trace.count("confirm.pileups")
+            with trace.span("confirm.pileup"):
+                tumor_pileup = (
+                    tumor.pileup_at(
+                        contig, locus, reference_base=int(tumor_tile.ref_base[ti])
+                    )
+                    if tumor_tile.overflow[ti]
+                    else tumor.pileup_from_tile_row(tumor_tile, ti)
                 )
-                if tumor_tile.overflow[ti]
-                else tumor.pileup_from_tile_row(tumor_tile, ti)
-            )
-            normal_pileup = (
-                normal.pileup_at(
-                    contig,
-                    locus,
-                    reference_base=int(normal_tile.ref_base[ni]),
+                normal_pileup = (
+                    normal.pileup_at(
+                        contig,
+                        locus,
+                        reference_base=int(normal_tile.ref_base[ni]),
+                    )
+                    if normal_tile.overflow[ni]
+                    else normal.pileup_from_tile_row(normal_tile, ni)
                 )
-                if normal_tile.overflow[ni]
-                else normal.pileup_from_tile_row(normal_tile, ni)
-            )
-            calls.extend(
-                find_potential_variant_at_locus(
-                    tumor_pileup,
-                    normal_pileup,
-                    odds_threshold,
-                    min_alignment_quality,
-                    filter_multi_allelic,
-                    max_read_depth,
+                calls.extend(
+                    find_potential_variant_at_locus(
+                        tumor_pileup,
+                        normal_pileup,
+                        odds_threshold,
+                        min_alignment_quality,
+                        filter_multi_allelic,
+                        max_read_depth,
+                    )
                 )
-            )
+        trace.count("confirm.rows", len(batch_t))
         with trace.span("confirm"):
             calls.extend(
                 somatic_calls_from_row_pairs(
@@ -601,6 +604,7 @@ def call_variants(
     from guacamole_tpu_torch.ops.dispatch import prefetch_iter
 
     def screened():
+        seq = -1  # the screen tile's number in the call, as prefetch_iter's
         if mesh is not None:
             from guacamole_tpu_torch.parallel.mesh import mesh_ll_screens
 
@@ -619,6 +623,7 @@ def call_variants(
                 span="dispatch.launch",
             )
         for (contig, tile, tumor, normal), pending in screen_iter:
+            seq += 1
             if pending is None:
                 continue
             cand = candidates_of(pending.result())
@@ -626,6 +631,8 @@ def call_variants(
                 (cand | np.asarray(tile.overflow))
                 & (np.asarray(tile.depth)[: tile.L] > 0)
             )
+            trace.count("screen.rows", tile.L)
+            trace.count("screen.flagged", len(rows))
             if not len(rows):
                 continue
             # Group candidates by the tumor depth bucket and bound
@@ -642,30 +649,36 @@ def call_variants(
                 for i in range(0, len(group), max_rows):
                     chunk = group[i : i + max_rows]
                     loci_chunk = [int(tile.loci[li]) for li in chunk]
-                    yield contig, tile, chunk, loci_chunk, tumor, normal
+                    yield contig, tile, chunk, loci_chunk, tumor, normal, seq
 
     with ThreadPoolExecutor(max_workers=2) as executor:
 
-        def launch_packs(item):
-            contig, _, _, candidate_loci, tumor, normal = item
-            return tuple(
-                executor.submit(
-                    src.pack_sparse_tile,
+        def pack_sparse(src, contig, candidate_loci, seq):
+            with trace.span("pack.sparse", tile=seq):
+                return src.pack_sparse_tile(
                     contig,
                     candidate_loci,
                     max_alleles=max_alleles,
                     reference_genome=reference_genome,
                 )
+
+        def launch_packs(item):
+            contig, _, _, candidate_loci, tumor, normal, seq = item
+            return tuple(
+                executor.submit(pack_sparse, src, contig, candidate_loci, seq)
                 for src in (tumor, normal)
             )
 
-        for (contig, tile, candidates, _, tumor, normal), (tf, nf) in pipelined(
+        for (contig, tile, candidates, _, tumor, normal, seq), (tf, nf) in pipelined(
             screened(), launch_packs, max_in_flight=1
         ):
+            with trace.wait("confirm.wait", tile=seq):
+                tumor_tile, normal_tile = tf.result(), nf.result()
             confirm(
-                contig, tile, candidates, tf.result(), nf.result(),
+                contig, tile, candidates, tumor_tile, normal_tile,
                 tumor, normal,
             )
+    trace.count("somatic.calls", len(calls))
     with trace.span("sort"):
         calls.sort(key=lambda c: (c.reference_contig, c.start, c.allele))
     return calls
@@ -686,12 +699,13 @@ def call_variants_streaming(
     when streaming is unavailable for either input."""
     from guacamole_tpu_torch.callers.streaming import iter_task_sources
 
-    tumor_tasks = iter_task_sources(tumor_path, filters, loci_partitions)
-    if tumor_tasks is None:
-        return None
-    normal_tasks = iter_task_sources(normal_path, filters, loci_partitions)
-    if normal_tasks is None:
-        return None
+    with trace.span("plan"):
+        tumor_tasks = iter_task_sources(tumor_path, filters, loci_partitions)
+        if tumor_tasks is None:
+            return None
+        normal_tasks = iter_task_sources(normal_path, filters, loci_partitions)
+        if normal_tasks is None:
+            return None
 
     def task_sources():
         for (t_task, t_loci, t_src), (n_task, _n_loci, n_src) in zip(

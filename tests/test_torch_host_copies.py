@@ -12,6 +12,7 @@ whose differences are intended and stated in tests of their own.
 
 import os
 import re
+import textwrap
 
 import pytest
 
@@ -47,6 +48,45 @@ _REWRITE = [
     (re.compile(r"\bdri" r"ver\b"), "program"),
 ]
 
+
+# Blocks of callers/somatic_standard.py that the copy puts under a span,
+# indented one level.
+_PILEUP_FALLBACK = """\
+            tumor_pileup = (
+                tumor.pileup_at(
+                    contig, locus, reference_base=int(tumor_tile.ref_base[ti])
+                )
+                if tumor_tile.overflow[ti]
+                else tumor.pileup_from_tile_row(tumor_tile, ti)
+            )
+            normal_pileup = (
+                normal.pileup_at(
+                    contig,
+                    locus,
+                    reference_base=int(normal_tile.ref_base[ni]),
+                )
+                if normal_tile.overflow[ni]
+                else normal.pileup_from_tile_row(normal_tile, ni)
+            )
+            calls.extend(
+                find_potential_variant_at_locus(
+                    tumor_pileup,
+                    normal_pileup,
+                    odds_threshold,
+                    min_alignment_quality,
+                    filter_multi_allelic,
+                    max_read_depth,
+                )
+            )
+"""
+_STREAMING_PLAN = """\
+    tumor_tasks = iter_task_sources(tumor_path, filters, loci_partitions)
+    if tumor_tasks is None:
+        return None
+    normal_tasks = iter_task_sources(normal_path, filters, loci_partitions)
+    if normal_tasks is None:
+        return None
+"""
 
 # The stated departures of copied modules: (original text, the copy's text)
 # after the rewrite, each found once. callers/streaming.py names its decode
@@ -125,6 +165,80 @@ DEPARTURES = {
          '    with trace.span("write"):\n'
          '        records = _add_fns["multihost_finalize"](\n'
          "        mh, [called_somatic_allele_to_vcf_record(c)"),
+        # The spans and counters of the two-sample confirm: the per-pileup
+        # fallback for overflow rows, the rows batched into the f64
+        # confirm, the screen's rows and flagged rows (with each screen
+        # tile's number, the sparse packs' tile), the sparse packs on the
+        # executor, the main thread's wait for them, the calls, and the
+        # plan of the two .bai streams.
+        (_PILEUP_FALLBACK,
+         '            trace.count("confirm.pileups")\n'
+         '            with trace.span("confirm.pileup"):\n'
+         + textwrap.indent(_PILEUP_FALLBACK, "    ")),
+        ('        with trace.span("confirm"):\n',
+         '        trace.count("confirm.rows", len(batch_t))\n'
+         '        with trace.span("confirm"):\n'),
+        ("        for (contig, tile, tumor, normal), pending in screen_iter:\n",
+         "        for (contig, tile, tumor, normal), pending in screen_iter:\n"
+         "            seq += 1\n"),
+        ("            )\n"
+         "            if not len(rows):\n",
+         "            )\n"
+         '            trace.count("screen.rows", tile.L)\n'
+         '            trace.count("screen.flagged", len(rows))\n'
+         "            if not len(rows):\n"),
+        ("yield contig, tile, chunk, loci_chunk, tumor, normal\n",
+         "yield contig, tile, chunk, loci_chunk, tumor, normal, seq\n"),
+        ("""        def launch_packs(item):
+            contig, _, _, candidate_loci, tumor, normal = item
+            return tuple(
+                executor.submit(
+                    src.pack_sparse_tile,
+                    contig,
+                    candidate_loci,
+                    max_alleles=max_alleles,
+                    reference_genome=reference_genome,
+                )
+                for src in (tumor, normal)
+            )
+
+        for (contig, tile, candidates, _, tumor, normal), (tf, nf) in pipelined(
+            screened(), launch_packs, max_in_flight=1
+        ):
+            confirm(
+                contig, tile, candidates, tf.result(), nf.result(),
+                tumor, normal,
+            )
+""", """        def pack_sparse(src, contig, candidate_loci, seq):
+            with trace.span("pack.sparse", tile=seq):
+                return src.pack_sparse_tile(
+                    contig,
+                    candidate_loci,
+                    max_alleles=max_alleles,
+                    reference_genome=reference_genome,
+                )
+
+        def launch_packs(item):
+            contig, _, _, candidate_loci, tumor, normal, seq = item
+            return tuple(
+                executor.submit(pack_sparse, src, contig, candidate_loci, seq)
+                for src in (tumor, normal)
+            )
+
+        for (contig, tile, candidates, _, tumor, normal, seq), (tf, nf) in pipelined(
+            screened(), launch_packs, max_in_flight=1
+        ):
+            with trace.wait("confirm.wait", tile=seq):
+                tumor_tile, normal_tile = tf.result(), nf.result()
+            confirm(
+                contig, tile, candidates, tumor_tile, normal_tile,
+                tumor, normal,
+            )
+    trace.count("somatic.calls", len(calls))
+"""),
+        (_STREAMING_PLAN,
+         '    with trace.span("plan"):\n'
+         + textwrap.indent(_STREAMING_PLAN, "    ")),
     ],
 }
 

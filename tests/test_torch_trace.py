@@ -3,7 +3,10 @@ without a profiler, on under a CPU torch.profiler session, on the
 profiler's clock through the anchor, the device's idle time by span, and
 the GUAC_PROFILE_DIR exporter. germline-threshold runs in-process on the
 simulated fixture of the threshold tests (scale 0.02, seed 7), over four
-partition tasks so that the decode thread streams several."""
+partition tasks so that the decode thread streams several; somatic-standard
+on the same fixture's tumor/normal pair (deep bands with clumps of more
+distinct alleles than a tile holds, which the confirm takes one pileup at
+a time)."""
 
 import json
 import os
@@ -21,10 +24,16 @@ from guacamole_tpu_torch.utils.simulate import make_scale_fixture
 
 
 @pytest.fixture(scope="module")
-def fixture_bam(tmp_path_factory):
+def fixture_files(tmp_path_factory):
     out = tmp_path_factory.mktemp("sim")
     manifest = make_scale_fixture(str(out), scale=0.02, seed=7)
-    return os.path.join(str(out), manifest["files"]["germline_bam"])
+    return {k: os.path.join(str(out), v)
+            for k, v in manifest["files"].items()}
+
+
+@pytest.fixture(scope="module")
+def fixture_bam(fixture_files):
+    return fixture_files["germline_bam"]
 
 
 def run_threshold(bam, out):
@@ -242,3 +251,80 @@ def test_transfer_stats_keep_only_counters_with_readers():
         "h2d_bytes", "h2d_calls", "d2h_bytes", "d2h_calls", "launches",
         "ll_cells", "ll_elements", "dense_cells",
     }
+
+
+def run_somatic(files, out):
+    assert cli.main(
+        ["somatic-standard", "--tumor-reads", files["tumor_bam"],
+         "--normal-reads", files["normal_bam"], "--parallelism", "4",
+         "--out", out, "--device", "cpu"]
+    ) == 0
+
+
+def vcf_body(path):
+    with open(path) as fh:
+        return [line for line in fh if not line.startswith("##")]
+
+
+@pytest.fixture(scope="module")
+def somatic_traced(fixture_files, tmp_path_factory):
+    """One somatic-standard call (two .bai streams, the tumor screen on
+    the kernels' plain versions) under a CPU profiler session: its
+    records, counters and VCF."""
+    out = str(tmp_path_factory.mktemp("somatic_traced") / "traced.vcf")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("GUAC_HOST_SCREEN", "0")
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            run_somatic(fixture_files, out)
+    finally:
+        mp.undo()
+    snap = trace.snapshot()
+    return {"spans": snap["spans"], "counters": snap["counters"], "vcf": out}
+
+
+def test_somatic_call_records_its_confirm_spans(somatic_traced):
+    spans = somatic_traced["spans"]
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s["name"], set()).add(s["thread"])
+    for name in ("plan", "confirm.wait", "confirm", "confirm.pileup"):
+        assert by_name.get(name) == {"MainThread"}, name
+    # The sparse packs run on the executor's threads, each under the number
+    # of the screen tile whose flagged rows it packs; the main thread waits
+    # for each pair once.
+    assert by_name["pack.sparse"] and "MainThread" not in by_name["pack.sparse"]
+    screened = {s["tile"] for s in spans if s["name"] == "tiles.get"}
+    packed = [s["tile"] for s in spans if s["name"] == "pack.sparse"]
+    waited = [s["tile"] for s in spans if s["name"] == "confirm.wait"]
+    assert set(packed) <= screened and sorted(packed) == sorted(waited * 2)
+    assert len([s for s in spans if s["name"] == "plan"]) == 1
+
+
+def test_somatic_counters_bound_each_other(somatic_traced):
+    counters, spans = somatic_traced["counters"], somatic_traced["spans"]
+    assert counters["screen.rows"] == counters["pack.rows"] > 0
+    assert 0 < counters["screen.flagged"] <= counters["screen.rows"]
+    assert counters["confirm.pileups"] == len(
+        [s for s in spans if s["name"] == "confirm.pileup"]) > 0
+    assert (counters["confirm.rows"] + counters["confirm.pileups"]
+            <= counters["screen.flagged"])
+    records = len(vcf_body(somatic_traced["vcf"])) - 1  # less the #CHROM line
+    assert 0 < records <= counters["somatic.calls"] <= (
+        counters["confirm.rows"] + counters["confirm.pileups"])
+
+
+def test_somatic_untraced_records_nothing_and_writes_the_same_vcf(
+        somatic_traced, fixture_files, tmp_path, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("tracing touched while no profiler records")
+
+    monkeypatch.setenv("GUAC_HOST_SCREEN", "0")
+    monkeypatch.setattr(trace._profiler, "record_function", refuse)
+    monkeypatch.setattr(trace, "_buffer", refuse)
+    monkeypatch.setattr(trace, "_Span", refuse)
+    before = trace.snapshot()["spans"]
+    out = str(tmp_path / "untraced.vcf")
+    run_somatic(fixture_files, out)
+    assert trace.snapshot()["spans"] == before
+    assert vcf_body(out) == vcf_body(somatic_traced["vcf"])
