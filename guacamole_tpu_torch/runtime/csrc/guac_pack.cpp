@@ -120,7 +120,7 @@ struct PackedTile {
   int64_t L = 0, D = 0, K = 0;
   // [L]
   std::vector<uint8_t> ref_base;
-  std::vector<int32_t> depth;
+  raw_vector<int32_t> depth;
   std::vector<int16_t> num_alleles;
   std::vector<uint8_t> overflow;
   // [L, D] (uninitialized-alloc; every cell written by the fill passes)
@@ -141,7 +141,7 @@ struct PackedTile {
   // depth axis, no padding: the device screen cumsums nibble one-hots
   // and differences at row boundaries.
   raw_vector<uint8_t> csr_nib;
-  std::vector<int32_t> csr_off;  // [L+1]
+  raw_vector<int32_t> csr_off;  // [L+1]
   // Likelihood-mode dense encoding: [L, D] uint16, allele_id (4 bits) |
   // base qual << 4; 0xFFFF = empty / MAPQ-filtered / beyond-cap slot.
   // Feeds the device genotype-likelihood screen.
@@ -159,13 +159,13 @@ struct PackedTile {
   // likelihoods, e.g. the somatic tumor screen). 0 where ll_pack = 0xFFFF.
   raw_vector<uint8_t> ll_mapq;
   // [L, K]
-  std::vector<uint8_t> is_variant;
-  std::vector<uint8_t> is_standard_alt;
+  raw_vector<uint8_t> is_variant;
+  raw_vector<uint8_t> is_standard_alt;
   // Screen-mode by-product: per-(locus, allele) element counts over the
   // SAME elements the CSR nibbles encode (id < K, MAPQ-passing). The host
   // fallback screen (no accelerator) thresholds these directly instead of
   // shipping CSR to a device; the TPU path ignores them.
-  std::vector<int32_t> counts;  // [L, K] (csr mode only)
+  raw_vector<int32_t> counts;  // [L, K] (csr mode only)
   // Host form of the germline genotype-likelihood screen (requested via
   // ll_screen_margin > 0 on csr tiles): [L] 0/1 candidate flags from the
   // same factored per-allele-sum rule as ops/kernels.py::
@@ -177,7 +177,7 @@ struct PackedTile {
   std::vector<uint8_t> key_blob;     // concatenated ref+alt bytes
   std::vector<int64_t> key_ref_off;  // n_keys+1 (start of ref of key i)
   std::vector<int64_t> key_alt_off;  // n_keys (split point within key i)
-  std::vector<int32_t> uniq_key;     // per (locus, rank): global key index
+  raw_vector<int32_t> uniq_key;      // per (locus, rank): global key index
   std::vector<int64_t> uniq_off;     // L+1 offsets into uniq_key
 };
 
@@ -214,6 +214,25 @@ struct PassTimer {
     last = now;
   }
 };
+
+// The first row at or after `from` whose locus is >= x (n if none), for
+// loci ascending. Loci are distinct integers, so it lies within
+// x - loci[from] rows of from: dense loci cost one probe, and a gallop
+// (doubling, then bisecting) bounds the rest by O(log gap).
+static int64_t row_at_least(const int64_t* loci, int64_t from, int64_t n,
+                            int64_t x) {
+  if (from >= n || loci[from] >= x) return from;
+  int64_t top = std::min(n, from + (x - loci[from]));
+  if (loci[top - 1] < x) return top;
+  int64_t below = from, step = 1;  // loci[below] < x <= loci[top - 1]
+  while (below + step < top && loci[below + step] < x) {
+    below += step;
+    step *= 2;
+  }
+  return std::lower_bound(loci + below + 1,
+                          loci + std::min(below + step, top), x) -
+         loci;
+}
 
 static void parallel_blocks(int64_t nblocks, int max_threads,
                             const std::function<void(int64_t, int)>& fn) {
@@ -349,33 +368,19 @@ void* guac_pack_tile(
   }
   std::vector<int64_t> sel;
   sel.reserve(1024);
+  bool sorted = true;
   for (int64_t r = r_begin; r < r_end_idx; r++) {
     if (ref_id[r] != contig_id) continue;
     if (end[r] <= lo_bound || start[r] > hi_bound) continue;
+    if (!sel.empty() && start[r] < start[sel.back()]) sorted = false;
     sel.push_back(r);
   }
-  bool sorted = true;
-  for (size_t i = 1; i < sel.size(); i++)
-    if (start[sel[i]] < start[sel[i - 1]]) {
-      sorted = false;
-      break;
-    }
   if (!sorted)
     std::stable_sort(sel.begin(), sel.end(), [&](int64_t a, int64_t b) {
       return start[a] < start[b];
     });
 
   timer_.mark("select");
-  // Row range per read via binary search into loci.
-  auto row_lo = [&](int64_t s) {
-    return std::lower_bound(loci, loci + n_loci, s) - loci;
-  };
-  std::vector<std::pair<int64_t, int64_t>> read_rows(sel.size());
-  for (size_t i = 0; i < sel.size(); i++) {
-    int64_t r = sel[i];
-    read_rows[i] = {row_lo(start[r]), row_lo(end[r])};
-  }
-
   // Block decomposition of the locus axis: each block owns its rows, so
   // every per-row fill below is race-free. Reads are bucketed into every
   // block they overlap, preserving sel (start-sorted) order per block so
@@ -386,55 +391,99 @@ void* guac_pack_tile(
   int64_t block_size = std::max<int64_t>(
       256, (n_loci + max_threads * 8 - 1) / (max_threads * 8));
   int64_t nblocks = (n_loci + block_size - 1) / block_size;
-  std::vector<std::vector<int64_t>> block_members((size_t)nblocks);
+  // Row range [lo, hi) per read in one forward walk: sel is start-sorted,
+  // so a read's first row (first locus >= start) never lies before the
+  // previous read's. Pass 1 rides along: depth per locus via an interval
+  // diff array — O(reads + loci), not O(elements): each read covers a
+  // contiguous row range.
+  std::vector<std::pair<int64_t, int64_t>> read_rows(sel.size());
+  std::vector<int32_t> diff((size_t)n_loci + 1, 0);
+  int64_t cursor = 0, max_span = 0;
   for (size_t i = 0; i < sel.size(); i++) {
-    auto [lo, hi] = read_rows[i];
-    if (hi <= lo) continue;
-    for (int64_t b = lo / block_size; b <= (hi - 1) / block_size; b++)
-      block_members[(size_t)b].push_back((int64_t)i);
+    int64_t r = sel[i];
+    cursor = row_at_least(loci, cursor, n_loci, start[r]);
+    int64_t hi = row_at_least(loci, cursor, n_loci, end[r]);
+    read_rows[i] = {cursor, hi};
+    if (hi <= cursor) continue;
+    max_span = std::max(max_span, hi - cursor);
+    diff[(size_t)cursor]++;
+    diff[(size_t)hi]--;
   }
+  // The first read whose first row is >= row (first rows ascend in sel).
+  auto first_read_at = [&](int64_t row) {
+    return std::partition_point(
+               read_rows.begin(), read_rows.end(),
+               [&](const std::pair<int64_t, int64_t>& rr) {
+                 return rr.first < row;
+               }) -
+           read_rows.begin();
+  };
+  // Block b's reads, in sel order, each fill pass takes on the block's own
+  // thread: those that reach into it from earlier rows (their first rows
+  // lie at most max_span rows before it), then those whose first row lies
+  // in it.
+  auto block_reads = [&](int64_t b, std::vector<int64_t>& members) {
+    int64_t bs = b * block_size;
+    int64_t be = std::min(bs + block_size, n_loci);
+    members.clear();
+    for (int64_t i = first_read_at(bs - max_span), e = first_read_at(be);
+         i < e; i++) {
+      auto [lo, hi] = read_rows[(size_t)i];
+      if (hi > std::max(lo, bs)) members.push_back(i);
+    }
+  };
 
   timer_.mark("read_rows");
-  // Pass 1: depth per locus via an interval diff array — O(reads + loci),
-  // not O(elements): each read covers a contiguous row range.
-  t->depth.assign(L_out, 0);
-  {
-    std::vector<int32_t> diff((size_t)n_loci + 1, 0);
-    for (auto& [lo, hi] : read_rows)
-      if (hi > lo) {
-        diff[(size_t)lo]++;
-        diff[(size_t)hi]--;
-      }
-    int32_t run = 0;
-    for (int64_t i = 0; i < n_loci; i++) {
-      run += diff[(size_t)i];
-      t->depth[i] = run;
-    }
-  }
+  // Each block's CSR row bytes, for the offsets the CSR pass writes.
+  t->depth.resize(L_out);
+  std::fill(t->depth.begin() + n_loci, t->depth.end(), 0);
+  std::vector<int64_t> block_nib((size_t)nblocks, 0);
   int64_t max_depth = 0;
-  for (int64_t i = 0; i < n_loci; i++)
-    max_depth = std::max<int64_t>(max_depth, t->depth[i]);
+  int32_t run = 0;
+  for (int64_t b = 0; b < nblocks; b++)
+    for (int64_t row = b * block_size;
+         row < std::min((b + 1) * block_size, n_loci); row++) {
+      run += diff[(size_t)row];
+      t->depth[row] = run;
+      max_depth = std::max<int64_t>(max_depth, run);
+      block_nib[(size_t)b] += (run + 1) / 2;
+    }
   int64_t D =
       depth_pad > 0 ? depth_pad : pad_depth(std::max<int64_t>(max_depth, 1));
   // Likelihood-mode depth cap (matches pack/columnar.py
   // LIKELIHOOD_DEPTH_CAP): deeper rows overflow to the exact host path.
   if (mode == 2 || mode == 3) D = std::min<int64_t>(D, 16384);
   t->D = D;
+  // Nibble packing reserves 0xF for empty slots, so it only exists for
+  // K <= 15 (always true for the default K=8); otherwise Python callers
+  // see an empty array and pack on host.
+  bool emit_nib = K <= 15;
+  if (K > 15) mode = 0;  // compact encodings reserve 0xF for empty slots
+  bool full = mode == 0;
+  bool csr = mode == 1;        // CSR counting screen
+  bool ll = mode == 2 || mode == 3;  // dense likelihood screen
+  bool llm = mode == 3;        // + per-element MAPQ
+  int64_t Dp = (D + 1) / 2;  // packed-nibble row width
 
   timer_.mark("depth");
   // Pass 2: reference base per locus. Sentinel rows (>= n_loci) stay 0 to
-  // match pad_tile_loci's zero fill.
+  // match pad_tile_loci's zero fill. Without a reference contig the CSR
+  // pass resolves each row's base itself, from the reads it already walks
+  // in start order; the dense modes fill read-major, so they resolve the
+  // bases here first.
   t->ref_base.assign(L_out, 0);
   std::fill(t->ref_base.begin(), t->ref_base.begin() + n_loci, 'N');
   if (ref_contig != nullptr) {
     for (int64_t i = 0; i < n_loci; i++)
       if (loci[i] >= 0 && loci[i] < ref_contig_len)
         t->ref_base[i] = ref_contig[loci[i]];
-  } else {
+  } else if (!csr) {
     parallel_blocks(nblocks, max_threads, [&](int64_t b, int) {
       int64_t bs = b * block_size;
       int64_t be = std::min(bs + block_size, n_loci);
-      for (int64_t i : block_members[(size_t)b]) {
+      std::vector<int64_t> members;
+      block_reads(b, members);
+      for (int64_t i : members) {
         int64_t r = sel[(size_t)i];
         auto [lo, hi] = read_rows[(size_t)i];
         const uint8_t* mdr = ev_mdref + ev_off[r];
@@ -460,19 +509,11 @@ void* guac_pack_tile(
   // arrays are allocated uninitialized: data cells (slot < depth) are
   // written here / in pass 4, padding cells by the parallel padding pass
   // below — no serial whole-array memset.
-  // Nibble packing reserves 0xF for empty slots, so it only exists for
-  // K <= 15 (always true for the default K=8); otherwise Python callers
-  // see an empty array and pack on host.
-  bool emit_nib = K <= 15;
-  if (K > 15) mode = 0;  // compact encodings reserve 0xF for empty slots
-  bool full = mode == 0;
-  bool csr = mode == 1;        // CSR counting screen
-  bool ll = mode == 2 || mode == 3;  // dense likelihood screen
-  bool llm = mode == 3;        // + per-element MAPQ
-  int64_t Dp = (D + 1) / 2;  // packed-nibble row width
   // Screen mode is CSR over elements: no [L, D] grids, no depth cap (so
   // no depth-overflow host fallbacks), rows byte-aligned in csr_nib.
-  std::vector<int64_t> elem_off;  // [n_loci + 1] element offsets (CSR)
+  // Each block's rows start at the bytes of the blocks before it; the CSR
+  // pass writes their offsets.
+  std::vector<int64_t> block_nib_off((size_t)nblocks + 1, 0);
   if (full) {
     t->allele_id.resize(L_out * D);
     t->qual.resize(L_out * D);
@@ -487,25 +528,17 @@ void* guac_pack_tile(
     t->ll_pack.resize(L_out * D);
     if (llm) t->ll_mapq.resize(L_out * D);
   } else {
-    elem_off.resize(n_loci + 1);
-    elem_off[0] = 0;
-    for (int64_t r = 0; r < n_loci; r++)
-      elem_off[r + 1] = elem_off[r] + t->depth[r];
+    for (int64_t b = 0; b < nblocks; b++)
+      block_nib_off[(size_t)b + 1] =
+          block_nib_off[(size_t)b] + block_nib[(size_t)b];
     t->csr_off.resize(L_out + 1);
     t->csr_off[0] = 0;
-    for (int64_t r = 0; r < L_out; r++)
-      t->csr_off[r + 1] =
-          t->csr_off[r] +
-          (r < n_loci ? (int32_t)((t->depth[r] + 1) / 2) : 0);
-    if (!skip_nibbles) t->csr_nib.resize((size_t)t->csr_off[L_out]);
+    std::fill(t->csr_off.begin() + n_loci + 1, t->csr_off.end(),
+              (int32_t)block_nib_off[(size_t)nblocks]);
+    if (!skip_nibbles)
+      t->csr_nib.resize((size_t)block_nib_off[(size_t)nblocks]);
   }
   t->overflow.assign(L_out, 0);
-  if (csr) {
-    // Device counts return as int16; rows deeper than that go through
-    // the exact host path like any other overflow row.
-    for (int64_t r = 0; r < n_loci; r++)
-      if (t->depth[r] > 32767) t->overflow[r] = 1;
-  }
 
   timer_.mark("alloc");
   // Per-element allele keys: most are 2-byte (ref, alt); store compactly as
@@ -572,11 +605,19 @@ void* guac_pack_tile(
   // store global sorted-key RANKS (pass 4); CSR stores raw CODES, which
   // the stitch remaps once the global key table exists.
   std::vector<std::vector<int32_t>> block_uniq((size_t)nblocks);
-  std::vector<std::vector<int64_t>> block_counts((size_t)nblocks);
   t->num_alleles.assign(L_out, 0);
-  t->is_variant.assign(L_out * K, 0);
-  t->is_standard_alt.assign(L_out * K, 0);
-  if (csr) t->counts.assign(L_out * K, 0);
+  // [L, K] tables: the fill passes zero each block's rows on its own
+  // thread (zero_rows), and sentinel rows are zeroed here.
+  t->is_variant.resize(L_out * K);
+  t->is_standard_alt.resize(L_out * K);
+  if (csr) t->counts.resize(L_out * K);
+  auto zero_rows = [&](int64_t lo, int64_t hi) {
+    size_t at = (size_t)(lo * K), n = (size_t)((hi - lo) * K);
+    memset(t->is_variant.data() + at, 0, n);
+    memset(t->is_standard_alt.data() + at, 0, n);
+    if (csr) memset(t->counts.data() + at, 0, n * sizeof(int32_t));
+  };
+  zero_rows(n_loci, L_out);
   bool ll_screen = csr && ll_screen_margin > 0.0 && K <= 16;
   bool ll_tumor = ll_screen && ll_screen_kind == 2;
   if (ll_screen) t->ll_candidates.assign(L_out, 0);
@@ -625,12 +666,13 @@ void* guac_pack_tile(
     parallel_blocks(nblocks, max_threads, [&](int64_t blk, int th) {
       int64_t bs = blk * block_size;
       int64_t be = std::min(bs + block_size, n_loci);
-      const std::vector<int64_t>& members = block_members[(size_t)blk];
+      std::vector<int64_t> members;
+      block_reads(blk, members);
       std::vector<uint8_t>& seen_short = thread_seen[(size_t)th];
       std::vector<int32_t>& distinct_short = thread_distinct[(size_t)th];
       auto& uniq = block_uniq[(size_t)blk];
-      auto& cnts = block_counts[(size_t)blk];
-      cnts.reserve((size_t)(be - bs));
+      zero_rows(bs, be);
+      int64_t nib_off = block_nib_off[(size_t)blk];
       // Active-read window: two parallel compact arrays — the event-
       // pointer (pre-biased by -start so the row's event indexes as
       // kindp[locus]) and the expiry row. Parallel 8+8 bytes keep the
@@ -703,9 +745,12 @@ void* guac_pack_tile(
           next_m++;
         }
         int32_t dn = t->depth[row];
+        // Device counts return as int16; rows deeper than that go through
+        // the exact host path like any other overflow row.
+        if (dn > 32767) t->overflow[row] = 1;
         uint8_t* nib_row = nullptr;
         if (!skip_nib) {
-          nib_row = t->csr_nib.data() + t->csr_off[row];
+          nib_row = t->csr_nib.data() + nib_off;
           memset(nib_row, 0xFF, (size_t)((dn + 1) / 2));
           row_codes.clear();
           if (ll_screen) row_quals.clear();
@@ -718,7 +763,22 @@ void* guac_pack_tile(
           }
           ll_live = false;
         }
+        nib_off += (dn + 1) / 2;
+        t->csr_off[row + 1] = (int32_t)nib_off;
         distinct.clear();
+        if (ref_contig == nullptr) {
+          // The row's reference base: the first read over it, in start
+          // order, whose MD reference byte is a standard base (MAPQ-
+          // filtered reads count), else N.
+          for (size_t a = 0; a < act_hi.size(); a++) {
+            if (act_hi[a] <= row) continue;  // expired
+            uint8_t b = ev_mdref[act_bias[a] + locus];
+            if (is_standard(b)) {
+              t->ref_base[row] = b;
+              break;
+            }
+          }
+        }
         uint8_t rb = t->ref_base[row];
         size_t w = 0;
         size_t n_act = act_hi.size();
@@ -952,7 +1012,7 @@ void* guac_pack_tile(
           }
         }
         if (has_long) long_lock.unlock();
-        cnts.push_back(n_distinct);
+        t->uniq_off[row + 1] = n_distinct;  // summed by the stitch
         int32_t* counts_row = t->counts.data() + row * K;
         int32_t n_ll_valid = 0;
         if (skip_nib) {
@@ -1104,7 +1164,9 @@ void* guac_pack_tile(
     int64_t be = std::min(bs + block_size, n_loci);
     std::vector<uint8_t>& seen_short = thread_seen[(size_t)th];
     std::vector<int32_t>& distinct_short = thread_distinct[(size_t)th];
-    for (int64_t i : block_members[(size_t)blk]) {
+    std::vector<int64_t> members;
+    block_reads(blk, members);
+    for (int64_t i : members) {
       int64_t r = sel[(size_t)i];
       auto [lo, hi] = read_rows[(size_t)i];
       const uint8_t* kinds = ev_kind + ev_off[r];
@@ -1121,7 +1183,7 @@ void* guac_pack_tile(
           continue;
         }
         int64_t off = loci[row] - start[r];
-        int64_t cell = (csr ? elem_off[row] : row * D) + slot;
+        int64_t cell = row * D + slot;
         if (!full && min_mapq > 0 && mapq[r] < min_mapq) {
           // MAPQ-filtered element: holds its slot, joins no allele table.
           elem_code[cell] = -2;
@@ -1282,8 +1344,7 @@ void* guac_pack_tile(
     int64_t bs = blk * block_size;
     int64_t be = std::min(bs + block_size, n_loci);
     auto& uniq = block_uniq[(size_t)blk];
-    auto& cnts = block_counts[(size_t)blk];
-    cnts.reserve((size_t)(be - bs));
+    zero_rows(bs, be);
     std::vector<uint8_t>& mark = pass4_mark[(size_t)th];
     std::vector<int32_t>& rank2id = pass4_rank2id[(size_t)th];
     std::vector<int32_t> locus_ranks;
@@ -1291,7 +1352,7 @@ void* guac_pack_tile(
       locus_ranks.clear();
       int32_t dn = (int32_t)(csr ? t->depth[row]
                                  : std::min<int64_t>(t->depth[row], D));
-      int64_t cell_base = csr ? elem_off[row] : row * D;
+      int64_t cell_base = row * D;
       for (int32_t slot = 0; slot < dn; slot++) {
         int32_t code = elem_code[cell_base + slot];
         if (code >= 0) {
@@ -1318,7 +1379,7 @@ void* guac_pack_tile(
           t->is_standard_alt[row * K + u] = std_alt ? 1 : 0;
         }
       }
-      cnts.push_back(n_distinct);
+      t->uniq_off[row + 1] = n_distinct;  // summed by the stitch
       // assign dense allele ids to the elements of this locus (and patch
       // the 4-bit ids into the nibble transfer row — grid or CSR)
       uint8_t* nib_row = nullptr;
@@ -1369,29 +1430,19 @@ void* guac_pack_tile(
   });
   }  // !csr
   timer_.mark("pass4_ids");
-  // Stitch per-block uniq tables into the global offsets/values. CSR
-  // blocks recorded raw codes — remap them to global sorted ranks here.
+  // Stitch per-block uniq tables into the global values, and each row's
+  // count of alleles into offsets. CSR blocks recorded raw codes — remap
+  // them to global sorted ranks here.
   int64_t total_uniq = 0;
   for (auto& u : block_uniq) total_uniq += (int64_t)u.size();
-  t->uniq_key.reserve((size_t)total_uniq);
-  int64_t row_cursor = 0;
-  for (int64_t blk = 0; blk < nblocks; blk++) {
-    for (int64_t c : block_counts[(size_t)blk]) {
-      t->uniq_off[row_cursor + 1] = t->uniq_off[row_cursor] + c;
-      row_cursor++;
-    }
-    if (csr) {
-      for (int32_t code : block_uniq[(size_t)blk])
-        t->uniq_key.push_back(code_to_rank[code]);
-    } else {
-      t->uniq_key.insert(t->uniq_key.end(),
-                         block_uniq[(size_t)blk].begin(),
-                         block_uniq[(size_t)blk].end());
-    }
-  }
+  t->uniq_key.resize((size_t)total_uniq);
+  int32_t* uniq_out = t->uniq_key.data();
+  for (auto& u : block_uniq)
+    for (int32_t v : u) *uniq_out++ = csr ? code_to_rank[v] : v;
+  for (int64_t row = 0; row < n_loci; row++)
+    t->uniq_off[row + 1] += t->uniq_off[row];
   // Sentinel rows (L padding) keep the last offset.
-  for (int64_t row = row_cursor; row < L_out; row++)
-    t->uniq_off[row + 1] = t->uniq_off[row];
+  std::fill(t->uniq_off.begin() + n_loci + 1, t->uniq_off.end(), total_uniq);
 
   timer_.mark("stitch");
 

@@ -3,7 +3,8 @@
 // tests/test_torch_native.py and chip_smoke.py, which build it with
 // -fsanitize=thread.
 //
-//   native_pack_harness BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START]]]]]
+//   native_pack_harness BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START
+//                       [PAD [MIN_MAPQ]]]]]]]
 //   native_pack_harness BAM ROUNDS events [THREADS]
 //   native_pack_harness BAM ROUNDS chunks THREADS VBEG VEND [VBEG VEND]...
 //
@@ -13,7 +14,9 @@
 // the default: the whole contig in one call), the first WINDOWS windows
 // (0, the default: all) from locus START (default 0) of each contig that
 // reaches past START, on THREADS packer threads
-// (GUAC_PACK_THREADS; default: the packer's own choice). The modes are
+// (GUAC_PACK_THREADS; default: the packer's own choice), each tile with
+// PAD sentinel rows past its loci (l_pad; default 0) and the elements of
+// reads under MIN_MAPQ filtered (default 0: none). The modes are
 // guac_pack_tile's: 0 full [L, D] tiles (the dense route), 1 CSR for the
 // counting screens with the germline likelihood screen on (each thread
 // owns a block of rows and interns the long allele keys of insertions and
@@ -151,7 +154,8 @@ static long long candidates(void* tile) {
 }
 
 static int pack(void* reads, int rounds, int mode, int64_t window,
-                int64_t max_windows, int64_t start) {
+                int64_t max_windows, int64_t start, int64_t pad,
+                int64_t min_mapq) {
   int64_t n = guac_num_reads(reads), n_sp = guac_num_specials(reads);
   std::vector<int64_t> sp_read(n_sp), sp_offset(n_sp), sp_poff(n_sp),
       sp_plen(n_sp);
@@ -181,7 +185,8 @@ static int pack(void* reads, int rounds, int mode, int64_t window,
             sp_offset.data(), sp_kind.data(), sp_poff.data(), sp_plen.data(),
             sp_qual.data(), column(guac_special_payload, reads), (int32_t)c,
             (int64_t)loci.size(), loci.data(), /*K=*/8, /*depth_pad=*/0,
-            /*l_pad=*/0, mode, /*min_mapq=*/0, nullptr, 0, 0, 0,
+            /*l_pad=*/pad > 0 ? (int64_t)loci.size() + pad : 0, mode,
+            min_mapq, nullptr, 0, 0, 0,
             /*ll_screen_margin=*/mode == 1 ? 4.0 : 0.0,
             /*ll_screen_kind=*/mode == 3 ? 2 : 1,
             /*skip_nibbles=*/0, /*ll_screen_min_phred=*/0.0);
@@ -289,8 +294,8 @@ static int chunks(const char* path, int rounds, int threads,
 int main(int argc, char** argv) {
   if (argc < 3) {
     fprintf(stderr,
-            "usage: %s BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START]]]]]"
-            "\n"
+            "usage: %s BAM ROUNDS [MODES [WINDOW [WINDOWS [THREADS [START [PAD "
+            "[MIN_MAPQ]]]]]]]\n"
             "       %s BAM ROUNDS events [THREADS]\n"
             "       %s BAM ROUNDS chunks THREADS VBEG VEND [VBEG VEND]...\n",
             argv[0], argv[0], argv[0]);
@@ -328,7 +333,8 @@ int main(int argc, char** argv) {
       fprintf(stderr, "pack mode %d\n", mode);
       auto t0 = std::chrono::steady_clock::now();
       rc = pack(reads, rounds, mode, argc > 4 ? atoll(argv[4]) : 0,
-                argc > 5 ? atoll(argv[5]) : 0, argc > 7 ? atoll(argv[7]) : 0);
+                argc > 5 ? atoll(argv[5]) : 0, argc > 7 ? atoll(argv[7]) : 0,
+                argc > 8 ? atoll(argv[8]) : 0, argc > 9 ? atoll(argv[9]) : 0);
       fprintf(stderr, "pack mode %d: %.3f s\n", mode,
               std::chrono::duration<double>(std::chrono::steady_clock::now() -
                                             t0).count());

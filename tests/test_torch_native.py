@@ -47,6 +47,7 @@ import pytest
 
 import bam_mutants
 from guacamole_tpu.runtime import columnar as jax_columnar
+from guacamole_tpu.runtime import native as jax_native
 from guacamole_tpu.utils.simulate import make_scale_fixture
 from guacamole_tpu_torch.callers.streaming import ensure_bam_index
 from guacamole_tpu_torch.gio.bai import BamIndex, optimize_chunks
@@ -294,23 +295,31 @@ def test_copy_reads_no_byte_outside_its_buffers(
 # --- the packer's threads under ThreadSanitizer ---------------------------
 
 
-# The dense modes pack windows of the dense route's smallest tile (4,096
-# loci; a full [L, D] tile of a whole deep contig is too large), the first
-# eight of each contig; the tumor screen's mode packs the tumor BAM.
-_DENSE_WINDOW = ("4096", "8")
-_WHOLE = ("0", "0")
+# The harness's arguments after the mode: WINDOW WINDOWS THREADS [START PAD
+# MIN_MAPQ]. The dense modes pack windows of the dense route's smallest
+# tile (4,096 loci; a full [L, D] tile of a whole deep contig is too
+# large), the first eight of each contig; the tumor screen's mode packs the
+# tumor BAM. Windows of 16,384 loci besides, each with 37 sentinel rows
+# past its loci and the elements of reads under MAPQ 20 filtered.
+_DENSE_WINDOW = ("4096", "8", "16")
+_WHOLE = ("0", "0", "16")
+_PADDED_WINDOWS = ("16384", "4", "16", "0", "37", "20")
 
 
-@pytest.mark.parametrize("fixture,sample,mode,window", [
+@pytest.mark.parametrize("fixture,sample,mode,args", [
     pytest.param("small", "germline_bam", 1, _WHOLE, id="small"),
     pytest.param("fx", "germline_bam", 1, _WHOLE, id="fx"),
     pytest.param("small", "germline_bam", 0, _DENSE_WINDOW, id="full"),
     pytest.param("small", "germline_bam", 2, _DENSE_WINDOW, id="likelihood"),
     pytest.param("small", "tumor_bam", 3, _DENSE_WINDOW,
                  id="likelihood_mapq"),
+    pytest.param("fx", "germline_bam", 1, _PADDED_WINDOWS,
+                 id="csr_windows"),
+    pytest.param("small", "germline_bam", 2, _PADDED_WINDOWS,
+                 id="likelihood_windows"),
 ])
 def test_copy_packs_without_a_data_race(
-        harnesses, request, fixture, sample, mode, window):
+        harnesses, request, fixture, sample, mode, args):
     """The packer's passes run one thread per block of rows. In the CSR
     pass (mode 1) every thread interns the long keys of its insertions and
     deletions into one table; a row that reads that table while another
@@ -320,10 +329,14 @@ def test_copy_packs_without_a_data_race(
     gives no ThreadSanitizer report and the same screen flags each time.
     The full tiles of the dense route (mode 0) and the dense likelihood
     tiles (mode 2, and mode 3 with the tumor's MAPQ plane) are held the
-    same way, in windows, on 16 threads."""
+    same way, in windows, on 16 threads. Each fill pass gathers its
+    block's reads on the block's own thread, and the CSR pass writes its
+    rows' offsets and takes their reference bases from the reads it walks,
+    the MAPQ-filtered ones too: CSR and likelihood tiles in windows with
+    sentinel rows and the MAPQ filter on hold that the same way."""
     bam = request.getfixturevalue(fixture)[sample]
     run = subprocess.run(
-        [harnesses["tsan"], bam, "2", str(mode), *window, "16"],
+        [harnesses["tsan"], bam, "2", str(mode), *args],
         capture_output=True, text=True, timeout=300,
         env=dict(os.environ, TSAN_OPTIONS="halt_on_error=0"),
     )
@@ -339,9 +352,11 @@ def test_copy_packs_without_a_data_race(
     assert all(n_rows > 0 and checksum > 0
                for n_rows, _, checksum, _ in rows.values()), rows
     if mode == 1:
-        # One call per contig, and the screen flags rows on each.
-        assert all(n_windows == 1 and n_flags > 0
+        # The screen flags rows on each contig; whole, one call each.
+        assert all(n_flags > 0 and (n_windows == 1 or args != _WHOLE)
                    for _, n_windows, _, n_flags in rows.values()), rows
+    if args == _PADDED_WINDOWS:
+        assert rows["shallow8m"][:2] == (4 * (16_384 + 37), 4), rows
 
 
 def test_copy_builds_events_without_a_data_race(harnesses, fx):
@@ -550,6 +565,150 @@ def test_a_malformed_record_in_a_late_chunk_is_refused_naming_it(
                              f"record at inflated byte {at}: "), reason
     assert mutant.field in reason
     assert reason.replace(f"chunk {k} ", "chunk 0 ", 1) == str(alone.value)
+
+
+# --- the packer against the JAX package's packer --------------------------
+
+_CONTIG = 3_000
+_N_RUN = range(400, 410)  # reference Ns that no read resolves
+
+
+def _pack_sam(path):
+    """A coordinate-sorted SAM built to trip a read-to-row walk that went
+    wrong, and the contig's reference. Seeded reads of 20-190 bases whose
+    ends are out of start order (soft clips, insertions, deletions), ties
+    at one start, MAPQ 0-19 on about a fifth of the reads, and MD tags
+    that claim N, or another base than the reference's, at some aligned
+    bases, so that a row's first read can leave it N and a later one
+    resolve it; a run of Ns that no read resolves. Crafted reads besides:
+    a low-MAPQ read that starts a row with a standard MD base; reads that
+    lie inside the gaps of the loci below; one whose deletion spans more
+    than two blocks of rows; and reads on a second contig."""
+    rng = np.random.default_rng(20)
+    ref = rng.choice(list("ACGT"), _CONTIG)
+    ref[list(_N_RUN)] = "N"
+    reads = []
+
+    def add(pos, ops, mapq, flag=0, claim=0.04):
+        seq, md, run, at = [], "", 0, pos
+        for op, n in ops:
+            if op == "S" or op == "I":
+                seq += list(rng.choice(list("ACGT"), n))
+            elif op == "D":
+                md += f"{run}^{''.join(ref[at:at + n])}"
+                run, at = 0, at + n
+            else:
+                for base in ref[at:at + n]:
+                    if base != "N" and rng.random() < claim:
+                        base = rng.choice(list("ACGTN"))
+                    read = base if rng.random() < 0.9 else rng.choice(
+                        list("ACGTN"))
+                    seq.append(read)
+                    if read == base and base != "N":
+                        run += 1
+                    else:
+                        md += f"{run}{base}"
+                        run = 0
+                at += n
+        cigar = "".join(f"{n}{op}" for op, n in ops)
+        qual = "".join(chr(33 + int(q)) for q in rng.integers(2, 41, len(seq)))
+        reads.append((pos, f"r{len(reads)}\t{flag}\tchr1\t{pos + 1}\t{mapq}\t"
+                      f"{cigar}\t*\t0\t0\t{''.join(seq)}\t{qual}\t"
+                      f"MD:Z:{md}{run}"))
+
+    for pos in np.sort(rng.integers(0, _CONTIG - 220, 260)):
+        ops = [("S", int(rng.integers(1, 6)))] if rng.random() < 0.3 else []
+        for k in range(int(rng.integers(1, 4))):
+            if k:
+                ops.append((rng.choice(["I", "D"]), int(rng.integers(1, 4))))
+            ops.append(("M", int(rng.integers(6, 60))))
+        if rng.random() < 0.3:
+            ops.append(("S", int(rng.integers(1, 6))))
+        add(int(pos), ops, int(rng.integers(0, 20)) if rng.random() < 0.2
+            else 60, flag=16 * int(rng.integers(0, 2)))
+    for _ in range(3):  # ties: one start, three lengths
+        add(1_200, [("M", int(rng.integers(10, 80)))], 60)
+    add(1_000, [("M", 30)], 3, claim=0.0)  # low MAPQ, first at its rows
+    add(1_000, [("M", 40)], 60, claim=1.0)  # other bases, resolve nothing
+    add(640, [("M", 20), ("D", 600), ("M", 20)], 60)  # spans 3 blocks
+    add(530, [("M", 40)], 60)  # inside the dense loci's gap
+    add(2_003, [("M", 9)], 60)  # between two sparse loci
+    reads.sort(key=lambda r: r[0])
+    with open(path, "w") as fh:
+        fh.write(f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:{_CONTIG}\n"
+                 f"@SQ\tSN:chr2\tLN:500\n")
+        for _, line in reads:
+            fh.write(line + "\n")
+        for pos in (5, 90):
+            fh.write(f"x{pos}\t0\tchr2\t{pos + 1}\t60\t30M\t*\t0\t0\t"
+                     f"{'A' * 30}\t{'I' * 30}\tMD:Z:30\n")
+    return "".join(ref).encode()
+
+
+@pytest.fixture(scope="module")
+def pack_input(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("pack") / "pack.sam")
+    ref = _pack_sam(path)
+    cols = jax_columnar.decode_sam_columnar(path)
+    assert cols is not None and cols.n == 270 and len(cols.sp_read) > 0
+    # Dense loci with an uncovered gap and a one-locus hole; sparse loci
+    # every 13 bases over the contig, as the somatic confirm packs them.
+    dense = np.setdiff1d(np.arange(_CONTIG),
+                         np.r_[500:620, 1_500]).astype(np.int64)
+    sparse = np.arange(3, _CONTIG, 13, dtype=np.int64)
+    return cols, ref, {"dense": dense, "sparse": sparse}
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["all_reads", "window"])
+@pytest.mark.parametrize("with_ref", [False, True], ids=["md", "ref_contig"])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_copy_packs_what_the_jax_library_packs(pack_input, monkeypatch,
+                                               mode, with_ref, window):
+    """Every array guac_pack_tile returns, from the port's library and
+    from the JAX package's, is the same, dtype and bytes, in each of the
+    packer's four modes: the row ranges of reads found by a forward walk,
+    each block's members, depth and row offsets built on its own thread,
+    and in the CSR mode (1) without a reference contig each row's
+    reference base taken in the CSR pass, give the rows, reference bases
+    (N where no read resolves one), allele tables and screens that one
+    binary search a read and a pass of its own gave. Dense and sparse
+    loci, MAPQ filter on and off, sentinel rows past the loci (l_pad) or
+    none; in mode 1 the likelihood screen and the fused fill too. The
+    JAX library packs on one thread: on more, its CSR pass reads the table
+    of long allele keys while other threads grow it (the race the port's
+    lock repairs), and may read freed memory. The outputs do not depend on
+    the number of threads."""
+    cols, ref, loci_sets = pack_input
+    packs = 0
+    for name, loci in loci_sets.items():
+        for min_mapq in (0, 20):
+            for l_pad in (0, len(loci) + 37):
+                kw = dict(
+                    mode=mode, min_mapq=min_mapq, l_pad=l_pad,
+                    ref_contig=ref if with_ref else None,
+                    scan_window=cols.read_scan_window(
+                        0, int(loci[0]), int(loci[-1])) if window else None,
+                    ll_screen_margin=4.0 if mode == 1 else 0.0,
+                    ll_screen_kind=2 if mode == 3 else 1,
+                    skip_nibbles=mode == 1 and l_pad > 0)
+                got = port_native.pack_tile_native(cols, 0, loci, 8, **kw)
+                with monkeypatch.context() as one_thread:
+                    one_thread.setenv("GUAC_PACK_THREADS", "1")
+                    want = jax_native.pack_tile_native(cols, 0, loci, 8, **kw)
+                assert got.keys() == want.keys()
+                for key, value in want.items():
+                    assert np.asarray(got[key]).dtype == np.asarray(
+                        value).dtype, (name, min_mapq, l_pad, key)
+                    assert np.array_equal(got[key], value), (
+                        name, min_mapq, l_pad, key)
+                ref_base = np.asarray(want["ref_base"])
+                assert want["L"] == max(l_pad, len(loci))
+                if not with_ref and name == "dense":
+                    rows = np.searchsorted(loci, list(_N_RUN))
+                    assert set(ref_base[rows]) == {ord("N")}
+                    assert set(ref_base[:len(loci)]) > {ord("N")}
+                packs += 1
+    assert packs == 8
 
 
 # --- the package alone ----------------------------------------------------
