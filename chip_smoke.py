@@ -54,10 +54,7 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     device screens, checks that both counting kernels launched, that the
     VCF equals the host-screen run's record for record and that
     planted-SNV recall and precision are >= 0.9; then the same for an
-    --emit-ref range through the 8000x spike; then times the native host
-    layers of that path on the fixture's BAM, best of three: the decode
-    of the whole file, the decode over the partition tasks' .bai chunks,
-    and the pack of the tasks' tiles;
+    --emit-ref range through the 8000x spike;
  5. runs the counting tools on the same fixture, each with device screens
     (the full-count form of csr_count_screen: no threshold, no compaction)
     and with host screens, and checks that the outputs are equal byte for
@@ -83,11 +80,13 @@ and nothing of JAX or of the JAX package guacamole_tpu. In phases, it:
     run's record for record, that at least half of the planted somatic
     SNVs are called and that at most one germline het in 20 is called
     somatic;
- 8. runs germline-threshold and somatic-standard once more with
-    GUAC_DENSE_TILES=1 (full per-element tiles), checks that stats_ll
-    launched and no other screen kernel did, and that each VCF equals its
-    default run's; then runs the forward step of guacamole_tpu_torch.entry
-    on its example tile and on the timed shape against the plain version;
+ 8. runs germline-threshold and somatic-standard through their Python
+    API with max_alleles=16 (no CLI option sets it: tiles of 16 alleles
+    pack full per-element planes), checks that stats_ll launched and no
+    other screen kernel did, and that the calls equal those at the
+    default 8 alleles; then runs the forward step of
+    guacamole_tpu_torch.entry on its example tile and on the timed shape
+    against the plain version;
  9. drives the device mesh (parallel/mesh.py): mesh_csr_screens (threshold
     25 and full counts) and mesh_ll_screens (germline uint8, tumor) over a
     mesh of cuda:0 and of cuda:0 twice (two shards, two streams) on seven
@@ -1255,26 +1254,24 @@ def _check_equal_vcfs(a, b):
 
 
 def _main_path_run(command, argv, kernels, kernel_records,
-                   record_as="launches", path=None):
+                   record_as="launches", path=None, run=None):
     """One run of a main path with device screens, the launch counts and
-    transfer counters set to 0 just before it and read just after. The
-    counts of `kernels` must be above 0 and go into their records under
-    `record_as` (a kernel that several paths launch keeps its first path's
-    count under "launches" and the others beside it). Its launch shapes
-    are kept under `path` (by default the command, " dense" added with
-    the dense switch)."""
+    transfer counters set to 0 just before it and read just after: the
+    CLI with argv, or run(), which returns its wall. The counts of
+    `kernels` must be above 0 and go into their records under `record_as`
+    (a kernel that several paths launch keeps its first path's count under
+    "launches" and the others beside it). Its launch shapes are kept under
+    `path` (by default the command)."""
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import dispatch
 
     dispatch.reset_transfer_stats()
     ck.reset_launches()
-    wall = _run_cli(command, argv, host_screen=False)
+    wall = run() if run else _run_cli(command, argv, host_screen=False)
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     transfers = dict(dispatch.TRANSFER_STATS)
-    if path is None:
-        path = command + (
-            " dense" if os.environ.get("GUAC_DENSE_TILES") else "")
+    path = path or command
     MAIN_PATH_SHAPES[path] = {
         name: list(shapes) for name, shapes in ck.LAUNCH_SHAPES.items()
         if shapes
@@ -1531,83 +1528,6 @@ def run_threshold_slice(kernel_records: dict, manifest, out) -> None:
     matching = _check_equal_vcfs(vcf("ref_device.vcf"), vcf("ref_host.vcf"))
     print(f"emit-ref {loci}: {matching} records, equal to "
           "host screens", flush=True)
-    time_host_layers(bam)
-
-
-def _best_of_three(fn):
-    """("least / most host seconds of three calls", the last result)."""
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = fn()
-        times.append(time.perf_counter() - t0)
-    return f"{min(times):.4f} / {max(times):.4f}", out
-
-
-def time_host_layers(bam) -> None:
-    """Host seconds of the native layers of germline-threshold's streaming
-    path (runtime/csrc/), best of three: the decode of the whole BAM, the
-    decode over each partition task's .bai chunks (the CLI's partitions),
-    and the pack of the tasks' tiles as device screens take them (screen
-    fields with the CSR nibble blob). Nothing here launches a kernel."""
-    from guacamole_tpu_torch import cli
-    from guacamole_tpu_torch.callers.common import resolve_loci_builder
-    from guacamole_tpu_torch.callers.germline_threshold import (
-        _per_sample,
-        _sample_tiles,
-    )
-    from guacamole_tpu_torch.callers.streaming import (
-        chunks_for_loci_set,
-        ensure_bam_index,
-        iter_task_sources,
-    )
-    from guacamole_tpu_torch.gio.bam import BamFile
-    from guacamole_tpu_torch.reads.read import InputFilters
-    from guacamole_tpu_torch.runtime.columnar import decode_bam_columnar
-
-    os.environ["GUAC_HOST_SCREEN"] = "0"  # the tiles device screens take
-    parser = argparse.ArgumentParser()
-    cli._add_distributed_args(parser)
-    all_loci = resolve_loci_builder()
-    loci_set = all_loci.result(dict(BamFile(bam).references))
-    partitions = cli._streaming_partitions(parser.parse_args([]), loci_set,
-                                           bam)
-    inverse = partitions.inverse_map()
-    bai = ensure_bam_index(bam)
-    chunks = [chunks_for_loci_set(bam, bai, inverse[t])
-              for t in sorted(inverse)]
-    whole_s, whole = _best_of_three(lambda: decode_bam_columnar(bam).n)
-    chunk_s, in_chunks = _best_of_three(lambda: sum(
-        decode_bam_columnar(bam, chunks=c).n for c in chunks))
-    filters = InputFilters.create(
-        overlaps_loci=all_loci, non_duplicate=True, has_mdtag=True)
-    tasks = iter_task_sources(bam, filters, partitions)
-    check(tasks is not None, "the streaming path did not stream")
-    tasks = list(tasks)
-    device = torch.device("cuda", 0)
-
-    def pack():
-        tiles = rows = blob = 0
-        for _task, task_loci, source in tasks:
-            for tile, _name, _src in _sample_tiles(
-                    _per_sample(source), task_loci, device, 0, 8, None):
-                tiles += 1
-                rows += len(tile.loci)
-                blob += tile.csr_nib.nbytes
-        return tiles, rows, blob
-
-    pack_s, (tiles, rows, blob) = _best_of_three(pack)
-    check(whole > 0 and in_chunks > 0 and rows > 0 and blob > 0,
-          f"host layers: {whole} reads whole, {in_chunks} in chunks, "
-          f"{rows} rows packed")
-    print(
-        f"host layers ({_smi()}; host s, best / worst of three): native "
-        f"decode, whole file {whole_s} ({whole} reads), over the .bai "
-        f"chunks of {len(chunks)} tasks {chunk_s} ({in_chunks} reads); "
-        f"pack of the tasks' tiles {pack_s} ({tiles} tiles, {rows} rows, "
-        f"{blob} B of CSR blob)",
-        flush=True,
-    )
 
 
 def _check_equal_files(a, b):
@@ -1921,53 +1841,67 @@ def run_somatic_slice(kernel_records: dict, manifest, out) -> None:
 
 
 def run_dense_slice(kernel_records: dict, manifest, out, device) -> None:
-    """GUAC_DENSE_TILES=1: full per-element tiles through the fused dense
-    kernel stats_ll, for germline-threshold and somatic-standard on the
-    full fixtures; each VCF must equal its default run's. Then the forward
-    step of guacamole_tpu_torch.entry."""
+    """max_alleles=16 through the callers' Python API (no CLI option sets
+    it): tiles of 16 alleles pack full per-element planes and take the
+    fused dense kernel stats_ll, for germline-threshold and
+    somatic-standard on the full fixtures; the calls must equal those at
+    the default 8 alleles. Then the forward step of
+    guacamole_tpu_torch.entry."""
+    from guacamole_tpu_torch.callers import germline_threshold as gt
+    from guacamole_tpu_torch.callers import somatic_standard as ss
+    from guacamole_tpu_torch.callers.common import load_read_source
+    from guacamole_tpu_torch.loci.lociset import parse_loci
+    from guacamole_tpu_torch.loci.partition import partition_loci_uniformly
     from guacamole_tpu_torch.ops import cuda_kernels as ck
     from guacamole_tpu_torch.ops import kernels as plain
+    from guacamole_tpu_torch.reads.read import InputFilters
 
-    def vcf(name):
-        return os.path.join(out, name)
-
-    files = manifest["files"]
     paths = (
-        ("germline-threshold",
-         ["--reads", os.path.join(FIXTURE_DIR, files["germline_bam"]),
-          "--threshold", "25"],
-         "device.vcf", "dense_threshold.vcf", "launches"),
-        ("somatic-standard",
-         ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
-          "--normal-reads", os.path.join(FIXTURE_DIR, files["normal_bam"]),
-          "--odds", "20"],
-         "som_device.vcf", "dense_somatic.vcf",
+        ("germline-threshold", gt.call_variants, ["germline_bam"],
+         dict(threshold_percent=25), lambda c: str(c.to_vcf_record()),
+         "launches"),
+        ("somatic-standard", ss.call_variants, ["tumor_bam", "normal_bam"],
+         dict(odds_threshold=20),
+         lambda c: str(ss.called_somatic_allele_to_vcf_record(c)),
          "launches_somatic_standard"),
     )
-    for command, args, default_vcf, dense_vcf, record_as in paths:
-        default_wall = None
-        if not os.path.exists(vcf(default_vcf)):  # its own phase was not run
-            default_wall = _run_cli(
-                command, args + ["--out", vcf(default_vcf)],
-                host_screen=False)
-        os.environ["GUAC_DENSE_TILES"] = "1"
-        try:
-            wall, launches, transfers = _main_path_run(
-                command, args + ["--out", vcf(dense_vcf)], ("stats_ll",),
-                kernel_records, record_as=record_as,
-            )
-        finally:
-            del os.environ["GUAC_DENSE_TILES"]
+    os.environ["GUAC_HOST_SCREEN"] = "0"
+    for command, call_variants, bams, kwargs, record, record_as in paths:
+        loaded = [
+            load_read_source(
+                os.path.join(FIXTURE_DIR, manifest["files"][bam]),
+                InputFilters.create(non_duplicate=True, has_mdtag=True))
+            for bam in bams
+        ]
+        loci = parse_loci(",".join(
+            f"{contig}:0-{n}" for contig, n in loaded[0][1].items()))
+        partitions = partition_loci_uniformly(8, loci.result())
+        calls = {}
+
+        def run(max_alleles):
+            t0 = time.perf_counter()
+            calls[max_alleles] = [record(c) for c in call_variants(
+                *(source for source, _ in loaded), partitions,
+                max_alleles=max_alleles, device=device, **kwargs)]
+            return time.perf_counter() - t0
+
+        default_wall = run(8)
+        wall, launches, transfers = _main_path_run(
+            command, None, ("stats_ll",), kernel_records,
+            record_as=record_as, path=command + " dense",
+            run=lambda: run(16),
+        )
         others = {k: v for k, v in launches.items() if k != "stats_ll" and v}
         check(not others,
               f"dense {command}: other screen kernels launched: {others}")
-        matching = _check_equal_vcfs(vcf(dense_vcf), vcf(default_vcf))
+        check(calls[16] == calls[8] and calls[8],
+              f"dense {command}: the calls at 16 alleles differ from those "
+              "at 8")
         print(
-            f"slice: dense tiles, {command}: {matching} records equal to "
-            f"the default run, {wall:.3f} s wall"
-            + (f" (default run just before: {default_wall:.3f} s)"
-               if default_wall is not None else "")
-            + f"; launches {launches}; transfers {transfers} "
+            f"slice: dense tiles, {command} at max_alleles=16: "
+            f"{len(calls[16])} calls equal to those at 8 alleles, "
+            f"{wall:.3f} s wall (8 alleles just before: {default_wall:.3f} "
+            f"s); launches {launches}; transfers {transfers} "
             f"({transfers['h2d_bytes'] / max(1, transfers['dense_cells']):.4f}"
             f" H2D bytes per staged slot); "
             + _describe_shapes(command + " dense"),
@@ -2716,82 +2650,17 @@ def _loaded_forbidden():
     )
 
 
-def profile_callers(manifest, out) -> None:
-    """Not part of the default run: one more germline-standard, one more
-    somatic-standard and one more vaf-histogram run (the full-count screen,
-    every row's counts brought back) with device screens under
-    torch.profiler, to say how long the card was busy and with what."""
-    files = manifest["files"]
-    _profile_run(
-        "germline-standard",
-        ["--reads", os.path.join(FIXTURE_DIR, files["germline_bam"])], out)
-    _profile_run(
-        "somatic-standard",
-        ["--tumor-reads", os.path.join(FIXTURE_DIR, files["tumor_bam"]),
-         "--normal-reads", os.path.join(FIXTURE_DIR, files["normal_bam"]),
-         "--odds", "20"],
-        out)
-    _profile_run(
-        "vaf-histogram",
-        ["--bins", "20", os.path.join(FIXTURE_DIR, files["germline_bam"])],
-        out)
-
-
-def _profile_run(command, args, out) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def argv(name):
-        return [*args, "--out", os.path.join(out, f"{command}_{name}")]
-
-    _run_cli(command, argv("warm.vcf"), host_screen=False)
-    with profile(
-        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    ) as prof:
-        wall = _run_cli(command, argv("profiled.vcf"), host_screen=False)
-        torch.cuda.synchronize()
-    on_device, on_host = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "device_time", None)
-            if us is None:
-                us = e.cuda_time
-            table = on_device
-        else:
-            us, table = e.self_cpu_time_total, on_host
-        n, total = table.get(e.name, (0, 0.0))
-        table[e.name] = (n + 1, total + us)
-    busy_ms = sum(total for _n, total in on_device.values()) / 1e3
-    check(busy_ms > 0, "the profiler saw no device activity")
-
-    def top(table):
-        return "; ".join(
-            f"{name[:60]} x{n}: {total / 1e3:.3f} ms"
-            for name, (n, total) in sorted(
-                table.items(), key=lambda kv: -kv[1][1])[:6]
-        )
-
-    print(
-        f"profile: {command} with device screens, {wall:.3f} s wall "
-        f"under the profiler, device busy {busy_ms:.3f} ms (idle share "
-        f"{1 - busy_ms / 1e3 / wall:.4%}); on the device: {top(on_device)}; "
-        f"PyTorch and CUDA runtime calls on the host, self time: "
-        f"{top(on_host)}",
-        flush=True,
-    )
-
-
 PHASES = ("build", "kernels", "threshold", "tools", "standard", "somatic",
           "dense", "mesh", "multiprocess", "native", "adam")
-EXTRA_PHASES = ("profile", "stats_ll")
+EXTRA_PHASES = ("stats_ll",)
 
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default=",".join(PHASES),
-        help="comma-separated subset of %(default)s, or with 'profile' "
-        "added; the last line is printed only after all of the default ones",
+        help="comma-separated subset of %(default)s, or 'stats_ll'; "
+        "the last line is printed only after all of the default ones",
     )
     phases = parser.parse_args(argv).phases.split(",")
     check(set(phases) <= set(PHASES + EXTRA_PHASES),
@@ -2806,7 +2675,7 @@ def main(argv) -> int:
     if set(phases) & {"kernels", "stats_ll"}:
         records.update(check_stats_ll(device))
     if set(phases) & {"threshold", "tools", "standard", "somatic", "dense",
-                      "mesh", "multiprocess", "native", "adam", "profile"}:
+                      "mesh", "multiprocess", "native", "adam"}:
         manifest = make_fixture()
         out = tempfile.mkdtemp(prefix="chip_smoke_")
         if "threshold" in phases:
@@ -2827,8 +2696,6 @@ def main(argv) -> int:
             run_native_slice(manifest, out)
         if "adam" in phases:
             run_adam_slice(records, manifest, out)
-        if "profile" in phases:
-            profile_callers(manifest, out)
     if "kernels" in phases:
         time_at_launch_shapes(device, records)
     torch.cuda.synchronize()

@@ -265,24 +265,18 @@ def call_variants(
                 }
 
     from guacamole_tpu_torch.ops.dispatch import (
-        PendingCandidates,
+        ScreenPlan,
         candidates_of,
-        dense_tiles,
-        germline_screen_launch,
         pipelined,
-        screen_on_host,
-        screen_tile_launch,
     )
 
-    # Host screen (the CPU, or GUAC_HOST_SCREEN=1): the native packer
-    # computes the same factored likelihood-screen rule during the CSR
-    # single pass (guac_pack.cpp ll_candidates, f64), so no dense
-    # [L, D] likelihood tiles and no device kernels are built at all.
-    # On a GPU (or with a mesh) the device screen path is used. The two
-    # screens see different candidates by design (f64 native vs the f32
-    # superset); only the calls after the exact confirm are equal.
-    host_screen = mesh is None and screen_on_host(device)
-    screen_fields = "screen" if host_screen else "likelihood"
+    plan = ScreenPlan(
+        "germline", device=device, mesh=mesh,
+        min_mapq=min_alignment_quality,
+        # The min-likelihood emission gate, applied in the screen (a safe
+        # superset) when the exact emission prefilter is active.
+        min_phred=float(prefilter_min_likelihood),
+    )
 
     def tiles():
         for task_loci, sample_sources in task_iter():
@@ -291,63 +285,12 @@ def call_variants(
                     for tile in sample_source.iter_tiles(
                         contig,
                         task_loci.on_contig(contig),
-                        # mesh mode screens one whole tile per shard —
-                        # keep classic tiles there; otherwise auto.
-                        tile_size=(
-                            tile_size if mesh is None else (tile_size or 4096)
-                        ),
-                        max_alleles=max_alleles,
                         reference_genome=reference_genome,
-                        fields=screen_fields,
-                        min_mapq=min_alignment_quality,
-                        ll_screen_margin=0.5 if host_screen else 0.0,
-                        skip_nibbles=host_screen,
-                        # The min-likelihood emission gate, applied in the
-                        # screen (safe superset; see guac_pack.cpp) — only
-                        # when the exact emission prefilter is active.
-                        ll_screen_min_phred=(
-                            float(prefilter_min_likelihood)
-                            if host_screen
-                            else 0.0
-                        ),
+                        **plan.pack_args(tile_size, max_alleles),
                     ):
                         trace.count("pack.tiles")
                         trace.count("pack.rows", tile.L)
                         yield sample_name, sample_source, contig, tile
-
-    def launch(item):
-        tile = item[3]
-        if not tile.L:
-            return None
-        if getattr(tile, "ll_candidates", None) is not None:
-            return PendingCandidates(np.asarray(tile.ll_candidates))
-        if dense_tiles() or tile.K > 15:
-            # Full per-element tiles (the dense switch, or more alleles
-            # than the compact encodings hold): the dense counting screen
-            # over MAPQ-filtered elements, as in the JAX package — any
-            # variant evidence is a candidate.
-            return screen_tile_launch(
-                tile.allele_id, tile.qual, tile.mapq, tile.strand,
-                np.asarray(tile.valid)
-                & (np.asarray(tile.mapq) >= min_alignment_quality),
-                tile.is_variant, tile.K, device=device,
-            )
-        # Device genotype-likelihood screen: candidates are loci whose
-        # best variant genotype comes within a safety margin of the
-        # best reference genotype — a strict superset of exact-argmax
-        # variant loci (f32 error << margin).
-        # The min-likelihood emission gate runs in the device screen
-        # too (normalized-probability bound over the same genotype
-        # set, 2-phred f32 safety band; see ops/kernels.py) — same safe
-        # superset as the native host form.
-        # A Python-packed full tile has no native ll_pack: its uint16
-        # form is packed from the per-element tensors (ll_pack_of, with
-        # the MAPQ filter) and takes the same screen, where the JAX
-        # package runs the counting screen above.
-        return germline_screen_launch(
-            tile, min_mapq=min_alignment_quality,
-            min_phred=float(prefilter_min_likelihood), device=device,
-        )
 
     def confirm(sample_name, sample_source, contig, sparse):
         dense_rows = [si for si in range(sparse.L) if not sparse.overflow[si]]
@@ -380,23 +323,11 @@ def call_variants(
     from guacamole_tpu_torch.ops.dispatch import prefetch_iter
 
     def screened():
-        if mesh is not None:
-            from guacamole_tpu_torch.parallel.mesh import mesh_ll_screens
-
-            screen_iter = mesh_ll_screens(
-                prefetch_iter(tiles(), ahead=2),
-                tile_of=lambda item: item[3],
-                mesh=mesh,
-                min_mapq=min_alignment_quality,
-                min_phred=float(prefilter_min_likelihood),
-            )
-        else:
-            # Per-tile async launches: each packed tile's screen launches
-            # at once and overlaps the packing of the next.
-            screen_iter = pipelined(
-                prefetch_iter(tiles(), ahead=2), launch,
-                span="dispatch.launch",
-            )
+        # Per-tile async launches: each packed tile's screen launches at
+        # once and overlaps the packing of the next.
+        screen_iter = plan.screens(
+            prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[3]
+        )
         for item, pending in screen_iter:
             sample_name, sample_source, contig, tile = item
             if pending is None:

@@ -34,8 +34,7 @@ from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.variants.allele import Allele
 from guacamole_tpu_torch.ops.dispatch import (
     CompactScreen,
-    pack_skip_nibbles,
-    pipelined_screens,
+    ScreenPlan,
     prefetch_iter,
     screen_tile_for,
 )
@@ -296,26 +295,6 @@ def _per_sample(source):
     return {name: source.for_sample(name) for name in source.sample_names()}
 
 
-def _sample_tiles(sample_sources, task_loci, device, tile_size, max_alleles,
-                  reference_genome, mesh=None):
-    """(tile, sample_name, sample_source) for one partition task's loci."""
-    skip_nib = pack_skip_nibbles(device, mesh)
-    for sample_name, sample_source in sorted(sample_sources.items()):
-        for contig in task_loci.contigs:
-            for tile in sample_source.iter_tiles(
-                contig,
-                task_loci.on_contig(contig),
-                tile_size=tile_size,
-                max_alleles=max_alleles,
-                reference_genome=reference_genome,
-                fields="screen",
-                skip_nibbles=skip_nib,
-            ):
-                trace.count("pack.tiles")
-                trace.count("pack.rows", tile.L)
-                yield tile, sample_name, sample_source
-
-
 def call_variants(
     reads,
     loci_partitions: LociMap,
@@ -344,48 +323,48 @@ def call_variants(
     )
     inverse = loci_partitions.inverse_map()
     sample_sources = _per_sample(source)
-
-    def tiles():
-        for task in sorted(inverse):
-            yield from _sample_tiles(
-                sample_sources, inverse[task], device, tile_size, max_alleles,
-                reference_genome, mesh,
-            )
-
     return _screen_and_classify(
-        tiles(), threshold_percent, emit_ref, emit_no_call, device, mesh
+        ((sample_sources, inverse[task]) for task in sorted(inverse)),
+        threshold_percent, emit_ref, emit_no_call, tile_size, max_alleles,
+        reference_genome, device, mesh,
     )
 
 
 def _screen_and_classify(
-    tile_items, threshold_percent, emit_ref, emit_no_call, device, mesh=None
+    tasks, threshold_percent, emit_ref, emit_no_call, tile_size, max_alleles,
+    reference_genome, device, mesh=None,
 ) -> List[ThresholdCall]:
-    """Pipelined execution over (tile, sample_name, source) items: tiles
+    """Pipelined execution over (sample_sources, task_loci) tasks: tiles
     pack on a background thread (the native packer releases the GIL), each
     packed tile's screen launches at once, and classification trails a
     bounded window of screens in flight. With a mesh, groups of mesh.size
     tiles screen at once, one tile per shard. Returns calls in
     deterministic order."""
-    if mesh is not None:
-        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
+    plan = ScreenPlan(
+        "counts", device=device, mesh=mesh,
+        threshold_percent=threshold_percent,
+        # Variant-only runs read counts at candidate loci alone: compact
+        # them on the device so each tile's fetch is one small array.
+        compact_cap=None if (emit_ref or emit_no_call) else COMPACT_CAP,
+    )
 
-        screen_iter = mesh_csr_screens(
-            prefetch_iter(tile_items, ahead=2),
-            tile_of=lambda item: item[0],
-            mesh=mesh,
-            threshold_percent=threshold_percent,
-        )
-    else:
-        screen_iter = pipelined_screens(
-            prefetch_iter(tile_items, ahead=2),
-            tile_of=lambda item: item[0],
-            device=device,
-            threshold_percent=threshold_percent,
-            # Variant-only runs read counts at candidate loci alone:
-            # compact them on the device so each tile's fetch is one small
-            # array.
-            compact_cap=None if (emit_ref or emit_no_call) else COMPACT_CAP,
-        )
+    def tiles():
+        for sample_sources, task_loci in tasks:
+            for sample_name, sample_source in sorted(sample_sources.items()):
+                for contig in task_loci.contigs:
+                    for tile in sample_source.iter_tiles(
+                        contig,
+                        task_loci.on_contig(contig),
+                        reference_genome=reference_genome,
+                        **plan.pack_args(tile_size, max_alleles),
+                    ):
+                        trace.count("pack.tiles")
+                        trace.count("pack.rows", tile.L)
+                        yield tile, sample_name, sample_source
+
+    screen_iter = plan.screens(
+        prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[0]
+    )
     calls: List[ThresholdCall] = []
     for seq, ((tile, name, src), pending) in enumerate(screen_iter):
         with trace.span("classify", tile=seq):
@@ -436,13 +415,11 @@ def call_variants_streaming(
 
     # One pipeline across ALL tasks: tiles from task i+1 keep the device
     # busy while task i's tail classifies.
-    def tiles():
-        for _task, task_loci, source in task_sources:
-            yield from _sample_tiles(
-                _per_sample(source), task_loci, device, tile_size,
-                max_alleles, reference_genome, mesh,
-            )
-
     return _screen_and_classify(
-        tiles(), threshold_percent, emit_ref, emit_no_call, device, mesh
+        (
+            (_per_sample(source), task_loci)
+            for _task, task_loci, source in task_sources
+        ),
+        threshold_percent, emit_ref, emit_no_call, tile_size, max_alleles,
+        reference_genome, device, mesh,
     )

@@ -466,20 +466,14 @@ def call_variants(
         task_iter = lambda: iter(task_sources)  # noqa: E731
 
     from guacamole_tpu_torch.ops.dispatch import (
-        PendingCandidates,
+        ScreenPlan,
         candidates_of,
         pipelined,
-        screen_on_host,
-        screen_tile_launch,
-        tumor_screen_launch,
     )
 
-    # Host screen (the CPU, or GUAC_HOST_SCREEN=1): the native packer
-    # evaluates the tumor likelihood screen (alignment-included) inline
-    # during the CSR single pass — no dense [L, D] tumor tiles, no device
-    # kernels. On a GPU (or with a mesh) the device screen path is used.
-    host_screen = mesh is None and screen_on_host(device)
-    screen_fields = "screen" if host_screen else "likelihood_mapq"
+    plan = ScreenPlan(
+        "tumor", device=device, mesh=mesh, min_mapq=min_alignment_quality
+    )
 
     def tiles():
         for task_loci, tumor, normal in task_iter():
@@ -487,45 +481,12 @@ def call_variants(
                 for tile in tumor.iter_tiles(
                     contig,
                     task_loci.on_contig(contig),
-                    # mesh mode screens one whole tile per shard — keep
-                    # classic tiles there; otherwise auto.
-                    tile_size=(
-                        tile_size if mesh is None else (tile_size or 4096)
-                    ),
-                    max_alleles=max_alleles,
                     reference_genome=reference_genome,
-                    fields=screen_fields,
-                    min_mapq=min_alignment_quality,
-                    ll_screen_margin=0.5 if host_screen else 0.0,
-                    ll_screen_kind=2,
-                    skip_nibbles=host_screen,
+                    **plan.pack_args(tile_size, max_alleles),
                 ):
                     trace.count("pack.tiles")
                     trace.count("pack.rows", tile.L)
                     yield contig, tile, tumor, normal
-
-    def launch(item):
-        tile = item[1]
-        if not tile.L:
-            return None
-        if getattr(tile, "ll_candidates", None) is not None:
-            return PendingCandidates(np.asarray(tile.ll_candidates))
-        if getattr(tile, "ll_mapq", None) is not None:
-            # Tumor argmax-genotype screen (alignment-included f32
-            # likelihoods with a safety margin): a superset of loci the
-            # exact somatic kernel can emit, since its other gates (odds,
-            # depth bounds, normal evidence) only remove emissions.
-            return tumor_screen_launch(
-                tile, min_mapq=min_alignment_quality, device=device
-            )
-        # Fallback (Python-packed full tiles / the dense switch): counting
-        # screen.
-        return screen_tile_launch(
-            tile.allele_id, tile.qual, tile.mapq, tile.strand,
-            np.asarray(tile.valid)
-            & (np.asarray(tile.mapq) >= min_alignment_quality),
-            tile.is_variant, tile.K, device=device,
-        )
 
     def confirm(contig, tile, candidates, tumor_tile, normal_tile,
                 tumor, normal):
@@ -605,23 +566,11 @@ def call_variants(
 
     def screened():
         seq = -1  # the screen tile's number in the call, as prefetch_iter's
-        if mesh is not None:
-            from guacamole_tpu_torch.parallel.mesh import mesh_ll_screens
-
-            screen_iter = mesh_ll_screens(
-                prefetch_iter(tiles(), ahead=2),
-                tile_of=lambda item: item[1],
-                mesh=mesh,
-                include_alignment=True,
-                min_mapq=min_alignment_quality,
-            )
-        else:
-            # Per-tile async launches: each packed tile's screen launches
-            # at once and overlaps the packing of the next.
-            screen_iter = pipelined(
-                prefetch_iter(tiles(), ahead=2), launch,
-                span="dispatch.launch",
-            )
+        # Per-tile async launches: each packed tile's screen launches at
+        # once and overlaps the packing of the next.
+        screen_iter = plan.screens(
+            prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[1]
+        )
         for (contig, tile, tumor, normal), pending in screen_iter:
             seq += 1
             if pending is None:

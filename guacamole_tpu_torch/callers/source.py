@@ -1,6 +1,6 @@
 """ReadSource: uniform access to reads for the callers (the port's copy of
-guacamole_tpu/callers/source.py; iter_tiles asks the port's dense_tiles()
-where the original asks use_pallas()).
+guacamole_tpu/callers/source.py; iter_tiles packs the fields it is asked
+for, where the original packs full tiles whenever use_pallas() holds).
 
 The production path keeps reads columnar (native-decoded numpy arrays); the
 object path (list of MappedReads) remains for SAM inputs and tests. Callers
@@ -128,13 +128,6 @@ class ReadSource:
         fields="screen" skips the per-element [L, D] tensors on the native
         packer path (only counts/allele tables/packed nibbles are built) —
         for callers that never touch per-element fields."""
-        if fields in ("screen", "likelihood", "likelihood_mapq"):
-            from guacamole_tpu_torch.ops.dispatch import dense_tiles
-
-            if dense_tiles():
-                # The fused dense kernel consumes the full per-element
-                # tensors; reduced tiles would starve it.
-                fields = "full"
         if self._cols is not None:
             from guacamole_tpu_torch.pack.columnar import iter_tiles_columnar
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from guacamole_tpu_torch.loci.locimap import LociMap
-from guacamole_tpu_torch.ops.dispatch import pipelined_screens
+from guacamole_tpu_torch.ops.dispatch import ScreenPlan
 from guacamole_tpu_torch.pack.tiles import ref_match_allele_ids
 from guacamole_tpu_torch.utils.progress import progress
 
@@ -113,8 +113,9 @@ def _variant_loci_over_tasks(
     device: torch.device,
 ) -> List[VariantLocus]:
     """Shared screen + VAF-emit loop over (task_loci, source) tasks."""
-    from guacamole_tpu_torch.ops.dispatch import pack_skip_nibbles, prefetch_iter
+    from guacamole_tpu_torch.ops.dispatch import prefetch_iter
 
+    plan = ScreenPlan("counts", device=device, mesh=mesh)
     out: List[VariantLocus] = []
     first_sample: List[str] = []
 
@@ -125,25 +126,16 @@ def _variant_loci_over_tasks(
                 first_sample.append(names[0] if names else "default")
             for contig in task_loci.contigs:
                 for tile in source.iter_tiles(
-                    contig,
-                    task_loci.on_contig(contig),
-                    tile_size=tile_size,
-                    fields="screen",
-                    skip_nibbles=pack_skip_nibbles(device, mesh),
+                    contig, task_loci.on_contig(contig),
+                    **plan.pack_args(tile_size),
                 ):
                     yield contig, tile, source
 
-    if mesh is not None:
-        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
-
-        screen_iter = mesh_csr_screens(
-            tiles(), tile_of=lambda item: item[1], mesh=mesh
-        )
-    else:
-        screen_iter = pipelined_screens(
-            prefetch_iter(tiles(), ahead=2), tile_of=lambda item: item[1],
-            device=device,
-        )
+    # The mesh's screens pack on this thread.
+    screen_iter = plan.screens(
+        tiles() if mesh is not None else prefetch_iter(tiles(), ahead=2),
+        tile_of=lambda item: item[1],
+    )
     min_vaf = min_variant_allele_frequency / 100.0
     for (contig, tile, source), pending in screen_iter:
         stats = pending.result() if pending is not None else None

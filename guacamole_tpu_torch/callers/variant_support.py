@@ -21,7 +21,7 @@ import torch
 from guacamole_tpu_torch.gio.vcf import read_vcf
 from guacamole_tpu_torch.loci.locimap import LociMapBuilder
 from guacamole_tpu_torch.loci.lociset import LociSet
-from guacamole_tpu_torch.ops.dispatch import pipelined_screens
+from guacamole_tpu_torch.ops.dispatch import ScreenPlan
 from guacamole_tpu_torch.utils import bases as Bases
 
 
@@ -69,27 +69,16 @@ def pileup_allele_counts(
     names = source.sample_names()
     sample = names[0] if names else "default"
 
-    from guacamole_tpu_torch.ops.dispatch import pack_skip_nibbles
+    plan = ScreenPlan("counts", device=device, mesh=mesh)
 
     def tiles():
         for contig in loci.contigs:
             for tile in source.iter_tiles(
-                contig, loci.on_contig(contig), tile_size=tile_size,
-                fields="screen",
-                skip_nibbles=pack_skip_nibbles(device, mesh),
+                contig, loci.on_contig(contig), **plan.pack_args(tile_size)
             ):
                 yield contig, tile
 
-    if mesh is not None:
-        from guacamole_tpu_torch.parallel.mesh import mesh_csr_screens
-
-        screen_iter = mesh_csr_screens(
-            tiles(), tile_of=lambda item: item[1], mesh=mesh
-        )
-    else:
-        screen_iter = pipelined_screens(
-            tiles(), tile_of=lambda item: item[1], device=device
-        )
+    screen_iter = plan.screens(tiles(), tile_of=lambda item: item[1])
     for (contig, tile), pending in screen_iter:
         if pending is not None:
             stats = pending.result()

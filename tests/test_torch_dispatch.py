@@ -167,18 +167,23 @@ def test_wire_form_rejects_offsets_outside_the_blob():
 
 def test_screen_policy(monkeypatch):
     cuda = torch.device("cuda")
+
+    def skips_nibbles(device, mesh=None):
+        plan = dispatch.ScreenPlan("counts", device=device, mesh=mesh)
+        return plan.pack_args(0)["skip_nibbles"]
+
     monkeypatch.delenv("GUAC_HOST_SCREEN")
     assert dispatch.screen_on_host(CPU)
     assert not dispatch.screen_on_host(cuda)
     # No kernel could run on a GPU if the packer skipped the blob.
-    assert not dispatch.pack_skip_nibbles(cuda)
+    assert not skips_nibbles(cuda)
     monkeypatch.setenv("GUAC_HOST_SCREEN", "1")
-    assert dispatch.screen_on_host(cuda) and dispatch.pack_skip_nibbles(cuda)
+    assert dispatch.screen_on_host(cuda) and skips_nibbles(cuda)
     # A mesh always runs device screens, so its tiles keep their blob.
-    assert not dispatch.pack_skip_nibbles(CPU, mesh=object())
+    assert not skips_nibbles(CPU, mesh=object())
     monkeypatch.setenv("GUAC_HOST_SCREEN", "0")
     assert not dispatch.screen_on_host(CPU)
-    assert not dispatch.pack_skip_nibbles(CPU)
+    assert not skips_nibbles(CPU)
 
 
 def test_host_counts_screen_matches_device_screen():
@@ -242,13 +247,10 @@ def test_pipelined_screens_host_and_device_agree(monkeypatch, compact_cap):
 
     def screens(host):
         monkeypatch.setenv("GUAC_HOST_SCREEN", host)
-        return [
-            p.result()
-            for _t, p in dispatch.pipelined_screens(
-                iter(tiles), lambda t: t, CPU, threshold_percent=8,
-                compact_cap=compact_cap,
-            )
-        ]
+        plan = dispatch.ScreenPlan(
+            "counts", device=CPU, threshold_percent=8, compact_cap=compact_cap
+        )
+        return [p.result() for _t, p in plan.screens(iter(tiles), lambda t: t)]
 
     for dev, host in zip(screens("0"), screens("1")):
         for a, b in zip(dev, host):
@@ -268,6 +270,15 @@ def test_prefetch_iter_order_and_errors():
     assert next(it) == 1
     with pytest.raises(RuntimeError, match="producer failed"):
         next(it)
+
+
+def test_pipelined_holds_its_window():
+    """At most max_in_flight + 1 launches run ahead of the consumer."""
+    launched = []
+    it = dispatch.pipelined(range(10), launched.append, max_in_flight=1)
+    assert next(it)[0] == 0 and launched == [0, 1]
+    assert next(it)[0] == 1 and launched == [0, 1, 2]
+    assert [item for item, _ in it] == list(range(2, 10))
 
 
 def test_transfer_stats_lose_no_updates_under_threads():
@@ -319,16 +330,17 @@ def dense_tile(seed, L=300, D=15, K=8):
 
 @pytest.mark.parametrize("threshold_percent", [None, 8, 50])
 @pytest.mark.parametrize(
-    "branch, K", [("nibble", 8), ("many_alleles", 16), ("dense_switch", 8),
-                  ("dense_switch", 16)],
+    "branch, K", [("nibble", 8), ("many_alleles", 16), ("dense_switch", 8)],
 )
 def test_screen_tile_launch_matches_jax_in_each_branch(
     monkeypatch, branch, K, threshold_percent
 ):
-    """The three branches of screen_tile_launch against the JAX
+    """The two branches of screen_tile_launch against the JAX
     screen_tile_launch (its nibble screen, or XLA's tile_stats for
-    K > 15) and, for the dense switch, against the fused Pallas kernel
-    interpreted: the port's one dense kernel serves both dense branches."""
+    K > 15), and screen_dense_launch at K = 8 (dense_switch, the JAX
+    package's fused Pallas route) against the same; the dense results
+    also against the fused Pallas kernel interpreted: the port's one
+    dense kernel serves both."""
     from guacamole_tpu.ops.pallas_kernels import fused_tile_stats_ll
 
     planes = dense_tile(K, K=K)
@@ -342,10 +354,14 @@ def test_screen_tile_launch_matches_jax_in_each_branch(
         lambda *a, **k: launched.append(1) or real(*a, **k),
     )
     if branch == "dense_switch":
-        monkeypatch.setenv("GUAC_DENSE_TILES", "1")
-    got = dispatch.screen_tile_launch(
-        *planes, K, threshold_percent=threshold_percent, device=CPU
-    ).result()
+        aid, _q, _m, strand, valid, iv = planes
+        got = dispatch.screen_dense_launch(
+            aid, strand, valid, iv, K, threshold_percent, device=CPU
+        ).result()
+    else:
+        got = dispatch.screen_tile_launch(
+            *planes, K, threshold_percent=threshold_percent, device=CPU
+        ).result()
     assert bool(launched) == (branch != "nibble")
     np.testing.assert_array_equal(got.counts, np.asarray(want.counts))
     np.testing.assert_array_equal(got.candidates, np.asarray(want.candidates))
@@ -403,15 +419,6 @@ def test_dense_wire_keeps_the_tiles_types_and_skips_unread_planes():
             planes[0], None, None, planes[3][:, :4], *planes[4:], device=CPU)
 
 
-def test_dense_switch_is_read_from_the_environment(monkeypatch):
-    monkeypatch.delenv("GUAC_DENSE_TILES", raising=False)
-    assert not dispatch.dense_tiles()
-    monkeypatch.setenv("GUAC_DENSE_TILES", "0")
-    assert not dispatch.dense_tiles()
-    monkeypatch.setenv("GUAC_DENSE_TILES", "1")
-    assert dispatch.dense_tiles()
-
-
 def test_screen_packed_launch_matches_jax():
     aid, _q, _m, _s, valid, iv = dense_tile(5)
     packed = dispatch.pack_nibbles(aid, valid)
@@ -421,7 +428,7 @@ def test_screen_packed_launch_matches_jax():
     np.testing.assert_array_equal(got.candidates, np.asarray(want.candidates))
 
 
-def _full_tiles(max_alleles=8):
+def _full_tiles(max_alleles=8, **pack_args):
     from guacamole_tpu_torch.callers.source import ReadSource
     from guacamole_tpu_torch.loci.lociset import LociSet
     from guacamole_tpu_torch.runtime.columnar import columnar_from_reads
@@ -437,11 +444,25 @@ def _full_tiles(max_alleles=8):
         ReadSource.from_reads(reads),
         ReadSource.from_columnar(columnar_from_reads(reads, native=True)),
     )
+    pack_args.setdefault("fields", "screen")
     return [
         tile for source in sources
         for tile in source.iter_tiles(
-            "chr1", loci, fields="screen", max_alleles=max_alleles)
+            "chr1", loci, max_alleles=max_alleles, **pack_args)
     ]
+
+
+def _spy(monkeypatch, names):
+    """Record, in order, each call of the named dispatch functions."""
+    calls = []
+    for name in names:
+        real = getattr(dispatch, name)
+        monkeypatch.setattr(
+            dispatch, name,
+            lambda *a, _name=name, _real=real, **k: (
+                calls.append(_name) or _real(*a, **k)),
+        )
+    return calls
 
 
 @pytest.mark.parametrize("host_screen", ["0", "1"])
@@ -449,28 +470,30 @@ def _full_tiles(max_alleles=8):
 def test_dense_switch_packs_full_tiles_and_screens_them(
     monkeypatch, compact_cap, host_screen
 ):
-    """With GUAC_DENSE_TILES=1 iter_tiles packs fields='full' whatever the
-    caller asked for, and pipelined_screens and screen_tile_for take the
-    dense kernel (also where host screens are the default, as in the JAX
-    package); the counts and flags are the default route's."""
-    default = [
-        dispatch.screen_tile_for(t, threshold_percent=8, device=CPU)
-        for t in _tiles_both_packers()
-    ]
-    monkeypatch.setenv("GUAC_DENSE_TILES", "1")
+    """Tiles of more than 15 alleles pack full whatever fields the screen
+    asks for, and the screen plan and screen_tile_for take the dense
+    kernel, with host screens as with device screens (the packer has no
+    counts for them); the counts and flags are the JAX package's at the
+    same max_alleles."""
     monkeypatch.setenv("GUAC_HOST_SCREEN", host_screen)
-    tiles = _full_tiles()
+    plan = dispatch.ScreenPlan(
+        "counts", device=CPU, threshold_percent=8, compact_cap=compact_cap
+    )
+    tiles = _full_tiles(**plan.pack_args(0, 16))
     assert all(t.allele_id is not None and t.csr_nib is None for t in tiles)
+    launched = _spy(monkeypatch, ["screen_dense_launch"])
     screened = [
-        p.result() for _t, p in dispatch.pipelined_screens(
-            iter(tiles), lambda t: t, CPU, threshold_percent=8,
-            compact_cap=compact_cap,
-        )
+        p.result() for _t, p in plan.screens(iter(tiles), lambda t: t)
     ]
-    assert len(screened) == len(default)
-    for tile, got, want in zip(tiles, screened, default):
-        np.testing.assert_array_equal(got.counts, want.counts)
-        np.testing.assert_array_equal(got.candidates, want.candidates)
+    assert len(launched) == len(screened) == len(tiles) == 2
+    for tile, got in zip(tiles, screened):
+        want = jax_kernels.tile_stats(
+            tile.allele_id, tile.strand, tile.valid, tile.is_variant, 16,
+            threshold_percent=8,
+        )
+        np.testing.assert_array_equal(got.counts, np.asarray(want.counts))
+        np.testing.assert_array_equal(
+            got.candidates, np.asarray(want.variant_evidence))
         assert got.depth is not None
         again = dispatch.screen_tile_for(tile, threshold_percent=8, device=CPU)
         np.testing.assert_array_equal(again.counts, got.counts)
@@ -488,18 +511,101 @@ def test_sixteen_alleles_take_the_dense_kernel_without_the_switch():
         np.testing.assert_array_equal(got.counts, np.asarray(want.counts))
         np.testing.assert_array_equal(
             got.candidates, np.asarray(want.variant_evidence))
-    piped = [
-        p.result() for _t, p in dispatch.pipelined_screens(
-            iter(tiles), lambda t: t, CPU, threshold_percent=8, compact_cap=512)
-    ]
+    plan = dispatch.ScreenPlan(
+        "counts", device=CPU, threshold_percent=8, compact_cap=512)
+    piped = [p.result() for _t, p in plan.screens(iter(tiles), lambda t: t)]
     assert all(isinstance(r, dispatch.ScreenResult) for r in piped)
 
 
-def test_dense_route_refuses_a_reduced_tile(monkeypatch):
+def test_dense_route_refuses_a_reduced_tile():
+    """A tile of 16 alleles without its per-element planes cannot take the
+    dense kernel: screen_tile_for and the screen plan refuse it."""
+    import dataclasses
+
     tile = next(t for t in _tiles_both_packers() if t.allele_id is None)
-    monkeypatch.setenv("GUAC_DENSE_TILES", "1")
+    tile = dataclasses.replace(
+        tile, is_variant=np.zeros((tile.L, 16), bool), counts32=None)
     with pytest.raises(ValueError, match="fields='full'"):
         dispatch.screen_tile_for(tile, device=CPU)
+    plan = dispatch.ScreenPlan("counts", device=CPU)
+    with pytest.raises(ValueError, match="fields='full'"):
+        list(plan.screens(iter([tile]), lambda t: t))
+
+
+# The launches each tile form reaches, by kind of screen and where it
+# runs (host, device or a mesh of two CPU shards): "host" is a screen the
+# packer computed (no launch). A mesh never takes the dense route (its
+# wire forms hold 15 alleles); an empty tile launches nothing anywhere.
+_CSR = ["screen_csr_launch"]
+_COMPACT = ["screen_csr_compact_launch"]
+_DENSE = ["screen_tile_launch", "screen_dense_launch"]
+_NIBBLE = ["screen_tile_launch", "screen_csr_launch"]
+_GERMLINE = ["germline_screen_launch", "ll_screen_arrays_launch"]
+_TUMOR = ["tumor_screen_launch", "ll_screen_arrays_launch"]
+_ROUTES = {
+    # kind: {where: (native K = 8, Python-packed K = 8, native K = 16)}
+    "counts": {"host": ("host", _CSR, _DENSE),
+               "device": (_CSR, _CSR, _DENSE),
+               "mesh": (_CSR, _CSR, None)},
+    "counts_compact": {"host": ("host", _COMPACT, _DENSE),
+                       "device": (_COMPACT, _COMPACT, _DENSE),
+                       "mesh": (_CSR, _CSR, None)},
+    "germline": {"host": ("host", _GERMLINE, _DENSE),
+                 "device": (_GERMLINE, _GERMLINE, _DENSE),
+                 "mesh": (_GERMLINE, _GERMLINE, None)},
+    "tumor": {"host": ("host", _NIBBLE, _DENSE),
+              "device": (_TUMOR, _NIBBLE, _DENSE),
+              "mesh": (_TUMOR, ["ll_screen_arrays_launch"], None)},
+}
+
+
+@pytest.mark.parametrize("where", ["host", "device", "mesh"])
+@pytest.mark.parametrize("kind", list(_ROUTES))
+def test_screen_plan_packs_and_routes_each_tile_form(monkeypatch, kind, where):
+    from types import SimpleNamespace
+
+    from guacamole_tpu_torch.parallel.mesh import loci_mesh
+
+    monkeypatch.setenv("GUAC_HOST_SCREEN", "1" if where == "host" else "0")
+    mesh = loci_mesh([CPU] * 2) if where == "mesh" else None
+    plan = dispatch.ScreenPlan(
+        kind.split("_")[0], device=CPU, mesh=mesh,
+        threshold_percent=8 if kind.startswith("counts") else None,
+        compact_cap=512 if kind == "counts_compact" else None,
+        min_mapq=0 if kind.startswith("counts") else 1,
+        min_phred=5.0 if kind == "germline" else 0.0,
+    )
+    host = where == "host"
+    likelihood = not kind.startswith("counts")
+    fields = {"germline": "likelihood", "tumor": "likelihood_mapq"}
+    assert plan.pack_args(0) == dict(
+        tile_size=4096 if likelihood and mesh else 0,
+        max_alleles=8,
+        fields=fields[kind] if likelihood and not host else "screen",
+        min_mapq=1 if likelihood else 0,
+        ll_screen_margin=0.5 if host and likelihood else 0.0,
+        ll_screen_kind=2 if kind == "tumor" else 1,
+        skip_nibbles=host,
+        ll_screen_min_phred=5.0 if host and kind == "germline" else 0.0,
+    )
+    assert plan.pack_args(1024)["tile_size"] == 1024
+    # Above 15 alleles the packer builds full tiles whatever the screen.
+    assert plan.pack_args(0, 16)["fields"] == "full"
+    python8, native8 = _full_tiles(**plan.pack_args(0))
+    _python16, native16 = _full_tiles(**plan.pack_args(0, 16))
+    empty = SimpleNamespace(L=0)
+    calls = _spy(monkeypatch, [
+        "screen_csr_launch", "screen_csr_compact_launch", "screen_tile_launch",
+        "screen_dense_launch", "germline_screen_launch",
+        "tumor_screen_launch", "ll_screen_arrays_launch",
+    ])
+    forms = [native8, python8, native16][: 2 if mesh else 3]
+    for tile, want in zip(forms, _ROUTES[kind][where]):
+        calls.clear()
+        out = list(plan.screens(iter([empty, tile]), lambda t: t))
+        assert [item for item, _ in out] == [empty, tile]
+        assert out[0][1] is None and out[1][1].result() is not None
+        assert calls == ([] if want == "host" else want), (kind, where)
 
 
 @pytest.fixture(scope="module")
@@ -511,46 +617,75 @@ def scale_fixture(tmp_path_factory):
     return {k: os.path.join(out, v) for k, v in manifest["files"].items()}
 
 
+def _call_keys(caller, calls):
+    if caller == "germline_threshold":
+        return [str(c.to_vcf_record()) for c in calls]
+    if caller == "germline_standard":
+        return [
+            (c.reference_contig, c.start, c.allele.ref_bases,
+             c.allele.alt_bases, c.evidence.read_depth,
+             np.float64(c.evidence.likelihood).tobytes())
+            for c in calls
+        ]
+    return [
+        (c.reference_contig, c.start, c.allele.ref_bases, c.allele.alt_bases,
+         np.float64(c.somatic_log_odds).tobytes())
+        for c in calls
+    ]
+
+
 @pytest.mark.parametrize(
-    "caller", ["germline-threshold", "germline-standard", "somatic-standard"]
+    "command", ["germline-threshold", "germline-standard", "somatic-standard"]
 )
 def test_dense_switch_gives_each_callers_default_vcf(
-    monkeypatch, tmp_path, scale_fixture, caller
+    monkeypatch, scale_fixture, command
 ):
-    """GUAC_DENSE_TILES=1 changes what is shipped and which kernel screens
-    it, never the calls."""
-    from guacamole_tpu_torch import cli as port_cli
-    from guacamole_tpu_torch.concordance import compare_vcf_records
+    """max_alleles=16 through each caller's Python API (no CLI option sets
+    it) packs full tiles and screens them with the dense kernel; the calls
+    are the JAX package's at the same max_alleles, and the port's at the
+    default 8 alleles."""
+    import importlib
 
-    args = {
-        "germline-threshold": [
-            "--reads", scale_fixture["germline_bam"], "--threshold", "25"],
-        "germline-standard": [
-            "--reads", scale_fixture["germline_bam"],
-            "--loci", "deep1m:0-12000,shallow8m:0-60000"],
-        "somatic-standard": [
-            "--tumor-reads", scale_fixture["tumor_bam"],
-            "--normal-reads", scale_fixture["normal_bam"], "--odds", "20",
-            "--loci", "deep1m:0-12000"],
-    }[caller]
-    dense_launches = []
-    real = dispatch.screen_dense_launch
-    monkeypatch.setattr(
-        dispatch, "screen_dense_launch",
-        lambda *a, **k: dense_launches.append(1) or real(*a, **k),
+    from guacamole_tpu.callers.common import load_read_source as jax_load
+    from guacamole_tpu.loci.lociset import parse_loci as jax_parse_loci
+    from guacamole_tpu.loci.partition import (
+        partition_loci_uniformly as jax_partition,
     )
+    from guacamole_tpu.reads.read import InputFilters as JaxFilters
+    from guacamole_tpu_torch.callers.common import load_read_source
+    from guacamole_tpu_torch.loci.lociset import parse_loci
+    from guacamole_tpu_torch.loci.partition import partition_loci_uniformly
+    from guacamole_tpu_torch.reads.read import InputFilters
 
-    def run(name):
-        out = str(tmp_path / name)
-        assert port_cli.main(
-            [caller, *args, "--out", out, "--device", "cpu", "--debug"]) == 0
-        return out
+    caller = command.replace("-", "_")
+    loci = "deep1m:0-12000" + (
+        ",shallow8m:0-60000" if caller == "germline_standard" else "")
+    files = {"somatic_standard": ["tumor_bam", "normal_bam"]}.get(
+        caller, ["germline_bam"])
+    kwargs = {
+        "germline_threshold": dict(threshold_percent=25),
+        "germline_standard": dict(min_alignment_quality=1),
+        "somatic_standard": dict(odds_threshold=20),
+    }[caller]
 
-    default = run("default.vcf")
+    def call(pkg, load, filters, parse, partition, max_alleles, **extra):
+        fn = importlib.import_module(f"{pkg}.callers.{caller}").call_variants
+        sources = [
+            load(scale_fixture[f], filters.create(
+                non_duplicate=True, has_mdtag=True))[0]
+            for f in files
+        ]
+        return _call_keys(caller, fn(
+            *sources, partition(2, parse(loci).result()),
+            max_alleles=max_alleles, **kwargs, **extra))
+
+    want = call("guacamole_tpu", jax_load, JaxFilters, jax_parse_loci,
+                jax_partition, 16)
+    port = ("guacamole_tpu_torch", load_read_source, InputFilters,
+            parse_loci, partition_loci_uniformly)
+    dense_launches = _spy(monkeypatch, ["screen_dense_launch"])
+    default = call(*port, 8, device=CPU)
     assert not dense_launches
-    monkeypatch.setenv("GUAC_DENSE_TILES", "1")
-    dense = run("dense.vcf")
+    got = call(*port, 16, device=CPU)
     assert dense_launches
-    cmp = compare_vcf_records(dense, default)
-    assert cmp.record_level_identical, (cmp.only_a[:5], cmp.only_b[:5])
-    assert cmp.matching > 0
+    assert got == want == default and got

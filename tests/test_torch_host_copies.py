@@ -315,14 +315,23 @@ def test_native_bindings_differ_only_in_where_the_library_is_built():
 
 
 def test_read_source_differs_only_in_the_name_of_the_dense_switch():
-    """callers/source.py: iter_tiles asks the port's dispatch whether the
-    fused dense kernel wants full tiles, under the port's name for that
-    switch (dense_tiles, GUAC_DENSE_TILES=1) where the original asks
-    use_pallas (GUAC_USE_PALLAS=1 on a TPU)."""
+    """callers/source.py: the original less the block in which iter_tiles
+    asks use_pallas (GUAC_USE_PALLAS=1 on a TPU) whether the fused Pallas
+    kernel wants full tiles: the port has no such switch, and packs the
+    fields it is asked for (a tile of more than 15 alleles packs full in
+    any case)."""
     want = _rewritten("callers/source")
-    assert want.count("use_pallas") == 2 and "fused Pallas kernel" in want
-    want = want.replace("use_pallas", "dense_tiles").replace(
-        "fused Pallas kernel", "fused dense kernel")
+    switch = (
+        '        if fields in ("screen", "likelihood", "likelihood_mapq"):\n'
+        "            from guacamole_tpu_torch.ops.dispatch import use_pallas\n"
+        "\n"
+        "            if use_pallas():\n"
+        "                # The fused Pallas kernel consumes the full per-element\n"
+        "                # tensors; reduced tiles would starve it.\n"
+        '                fields = "full"\n'
+    )
+    assert want.count(switch) == 1 and want.count("use_pallas") == 2
+    want = want.replace(switch, "")
     got = _read(PORT_PKG, "callers/source")
     # The module docstrings differ; compare from the imports on.
     start = "from __future__ import annotations"
@@ -426,7 +435,7 @@ def _assert_differs_only_in(module, differing, head_edits=(), added=()):
 
 def test_variant_support_differs_only_in_the_screen_wiring_and_main():
     """callers/variant_support.py: pileup_allele_counts screens on an
-    explicit device with the port's pipelined_screens (or over the mesh),
+    explicit device (or over the mesh) with the port's ScreenPlan,
     and main takes --device. The tile flattening, with its overflow
     fallback, is the original."""
     _assert_differs_only_in(
@@ -438,7 +447,7 @@ def test_variant_support_differs_only_in_the_screen_wiring_and_main():
         },
         head_edits=[
             ("import numpy as np\n\n", "import numpy as np\nimport torch\n"),
-            ("pipelined_batched_screens", "pipelined_screens"),
+            ("pipelined_batched_screens", "ScreenPlan"),
         ],
     )
 
@@ -463,7 +472,7 @@ def test_vaf_histogram_differs_only_in_the_screen_wiring_the_em_and_main():
         },
         head_edits=[
             ("import numpy as np\n", "import numpy as np\nimport torch\n"),
-            ("pipelined_batched_screens", "pipelined_screens"),
+            ("pipelined_batched_screens", "ScreenPlan"),
         ],
         added=["_em_step"],
     )

@@ -7,7 +7,8 @@ port's runs in-process with --device cpu, so the tests can switch between
 host screens (the native packer's f64 tumor rule) and "device" screens (on
 the CPU: the plain PyTorch version of the tumor form of ll_screen), between
 streaming (BAM) and whole-file (SAM) input, and to the dense-tile route
-(GUAC_DENSE_TILES=1: full tiles through the plain version of stats_ll).
+(max_alleles=16 through the Python API: full tiles through the plain
+version of stats_ll).
 The screens flag different rows by design; the records after the exact f64
 confirm must be equal.
 """
@@ -145,16 +146,43 @@ def test_device_screens_run_the_tumor_form(monkeypatch, tmp_path, fixture_pair):
     assert dispatch.TRANSFER_STATS["launches"] == 0
 
 
+def _sixteen_allele_calls(pkg, pair):
+    """The calls of one package's somatic-standard at max_alleles=16 on
+    the fixture's deep contig, keyed by _call_key."""
+    import importlib
+
+    common = importlib.import_module(f"{pkg}.callers.common")
+    read = importlib.import_module(f"{pkg}.reads.read")
+    lociset = importlib.import_module(f"{pkg}.loci.lociset")
+    partition = importlib.import_module(f"{pkg}.loci.partition")
+    caller = importlib.import_module(f"{pkg}.callers.somatic_standard")
+    sources = [
+        common.load_read_source(path, read.InputFilters.create(
+            non_duplicate=True, has_mdtag=True))[0]
+        for path in pair
+    ]
+    loci = partition.partition_loci_uniformly(
+        2, lociset.parse_loci("deep1m:0-20000").result())
+    extra = {} if pkg == "guacamole_tpu" else {"device": torch.device("cpu")}
+    return [_call_key(c) for c in caller.call_variants(
+        *sources, loci, odds_threshold=20, max_alleles=16, **extra)]
+
+
+@pytest.fixture(scope="module")
+def jax_sixteen_alleles(fixture_pair):
+    return _sixteen_allele_calls("guacamole_tpu", fixture_pair[0]["bam"])
+
+
 @pytest.mark.parametrize("host_screen", [True, False])
 def test_dense_tiles_give_the_default_vcf(
-    monkeypatch, tmp_path, fixture_pair, jax_vcfs, host_screen
+    monkeypatch, fixture_pair, jax_sixteen_alleles, host_screen
 ):
-    """GUAC_DENSE_TILES=1: full tiles, screened by the fused dense kernel
-    (here its plain version); the calls are the default run's."""
+    """max_alleles=16: full tiles, screened by the fused dense kernel
+    (here its plain version) with host screens as with device screens;
+    the calls are the JAX package's at the same max_alleles."""
     from guacamole_tpu_torch.ops import dispatch
 
     monkeypatch.setenv("GUAC_HOST_SCREEN", "1" if host_screen else "0")
-    monkeypatch.setenv("GUAC_DENSE_TILES", "1")
     calls = []
     real = dispatch.screen_dense_launch
 
@@ -163,11 +191,9 @@ def test_dense_tiles_give_the_default_vcf(
         return real(*args, **kwargs)
 
     monkeypatch.setattr(dispatch, "screen_dense_launch", spy)
-    out = port_run(
-        str(tmp_path / "dense.vcf"), fixture_pair[0]["bam"], "--odds", "20")
+    got = _sixteen_allele_calls("guacamole_tpu_torch", fixture_pair[0]["bam"])
     assert calls
-    cmp = compare_vcf_records(out, jax_vcfs("default"))
-    assert cmp.record_level_identical, (cmp.only_a[:5], cmp.only_b[:5])
+    assert got == jax_sixteen_alleles and got
 
 
 @pytest.mark.parametrize(
@@ -259,24 +285,27 @@ def test_python_packed_tiles_take_the_counting_screen(
     monkeypatch, host_screen, dense
 ):
     """Reads given as objects pack in Python into full tiles with neither
-    ll_candidates nor ll_mapq: launch takes screen_tile_launch over the
-    MAPQ-passing elements, as the JAX package does (nibble rows into the
-    CSR screen, or the dense kernel with the switch). The calls equal the
-    JAX package's, the somatic odds bit for bit."""
+    ll_candidates nor ll_mapq: the screen takes screen_tile_launch over
+    the MAPQ-passing elements, as the JAX package does (nibble rows into
+    the CSR screen, or the dense kernel at max_alleles=16). The calls
+    equal the JAX package's at the same max_alleles, the somatic odds bit
+    for bit."""
     from guacamole_tpu_torch.ops import dispatch
 
-    if dense:
-        monkeypatch.setenv("GUAC_DENSE_TILES", "1")
-    launched = []
-    real = dispatch.screen_tile_launch
-
-    def spy(*args, **kwargs):
-        launched.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(dispatch, "screen_tile_launch", spy)
-    got, want = _call_both(monkeypatch, host_screen, odds_threshold=2)
-    assert launched
+    launched, dense_launched = [], []
+    for name, seen in (("screen_tile_launch", launched),
+                       ("screen_dense_launch", dense_launched)):
+        real = getattr(dispatch, name)
+        monkeypatch.setattr(
+            dispatch, name,
+            lambda *a, _seen=seen, _real=real, **k: (
+                _seen.append(1) or _real(*a, **k)),
+        )
+    got, want = _call_both(
+        monkeypatch, host_screen, odds_threshold=2,
+        max_alleles=16 if dense else 8,
+    )
+    assert launched and bool(dense_launched) == dense
     assert [_call_key(c) for c in got] == [_call_key(c) for c in want]
     assert got
 

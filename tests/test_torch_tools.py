@@ -168,14 +168,13 @@ def jax_out(fx, tmp_path_factory):
 SCREENS = {
     "device": {"GUAC_HOST_SCREEN": "0"},
     "host": {"GUAC_HOST_SCREEN": "1"},
-    "dense": {"GUAC_DENSE_TILES": "1"},
 }
 
 
 def _port(monkeypatch, tmp_path, env, argv):
     """Run the port's CLI on the CPU under `env`; the output's bytes. A
     run with device screens must take the full-count screen alone."""
-    for key in ("GUAC_HOST_SCREEN", "GUAC_DENSE_TILES", "GUAC_NO_STREAMING"):
+    for key in ("GUAC_HOST_SCREEN", "GUAC_NO_STREAMING"):
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
@@ -191,7 +190,7 @@ def _port(monkeypatch, tmp_path, env, argv):
     assert port_cli.main(
         [*argv, flag, path, "--device", "cpu", "--debug"]
     ) == 0
-    if env.get("GUAC_HOST_SCREEN") == "0" or env.get("GUAC_DENSE_TILES"):
+    if env.get("GUAC_HOST_SCREEN") == "0":
         assert dispatch.TRANSFER_STATS["launches"] > 0
     with open(path, "rb") as fh:
         return fh.read()
