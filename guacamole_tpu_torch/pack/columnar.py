@@ -20,6 +20,7 @@ from guacamole_tpu_torch.pack.fast import (
 )
 from guacamole_tpu_torch.pack.tiles import LocusTile, pad_tile_loci
 from guacamole_tpu_torch.runtime.columnar import ColumnarReads
+from guacamole_tpu_torch.utils import trace
 
 
 def pack_tile_columnar(
@@ -209,6 +210,9 @@ def _pack_tile_native(
     )
     if out is None:
         return None
+    if fields.startswith("likelihood") and max_alleles <= 15:
+        # Modes 2 and 3: the rows the packer's locus-major sweep filled.
+        trace.count("pack.ll_sweep_rows", len(loci_arr))
     L, D, K = int(out["L"]), int(out["D"]), max_alleles
     if L > len(loci_arr):
         loci_arr = np.concatenate(

@@ -15,6 +15,7 @@
 // Compiled into libguac_runtime.so together with guac_runtime.cpp.
 
 #include <algorithm>
+#include <array>
 #include <chrono>
 #include <cstdint>
 #include <cmath>
@@ -467,17 +468,17 @@ void* guac_pack_tile(
 
   timer_.mark("depth");
   // Pass 2: reference base per locus. Sentinel rows (>= n_loci) stay 0 to
-  // match pad_tile_loci's zero fill. Without a reference contig the CSR
-  // pass resolves each row's base itself, from the reads it already walks
-  // in start order; the dense modes fill read-major, so they resolve the
-  // bases here first.
+  // match pad_tile_loci's zero fill. Without a reference contig the
+  // locus-major sweep (CSR and likelihood modes) resolves each row's base
+  // itself, from the reads it already walks in start order; the full mode
+  // fills read-major, so it resolves the bases here first.
   t->ref_base.assign(L_out, 0);
   std::fill(t->ref_base.begin(), t->ref_base.begin() + n_loci, 'N');
   if (ref_contig != nullptr) {
     for (int64_t i = 0; i < n_loci; i++)
       if (loci[i] >= 0 && loci[i] < ref_contig_len)
         t->ref_base[i] = ref_contig[loci[i]];
-  } else if (!csr) {
+  } else if (full) {
     parallel_blocks(nblocks, max_threads, [&](int64_t b, int) {
       int64_t bs = b * block_size;
       int64_t be = std::min(bs + block_size, n_loci);
@@ -495,20 +496,20 @@ void* guac_pack_tile(
         }
       }
     });
+    timer_.mark("ref_base");
   }
-
-  timer_.mark("ref_base");
   // Specials lookup: read -> (offset -> special index).
   std::unordered_map<int64_t, std::unordered_map<int64_t, int64_t>>
       special_by_read;
   for (int64_t s = 0; s < n_specials; s++)
     special_by_read[sp_read[s]][sp_offset[s]] = s;
 
-  // Pass 3: fill [L, D] arrays + per-element allele keys (parallel over
-  // blocks; only long-key interning is shared, behind a mutex). The
-  // arrays are allocated uninitialized: data cells (slot < depth) are
-  // written here / in pass 4, padding cells by the parallel padding pass
-  // below — no serial whole-array memset.
+  // Pass 3 (full mode): fill [L, D] arrays + per-element allele keys
+  // (parallel over blocks; only long-key interning is shared, behind a
+  // mutex). The arrays are allocated uninitialized: data cells (slot <
+  // depth) are written here / in pass 4, padding cells by the parallel
+  // padding pass below — no serial whole-array memset. The likelihood
+  // modes' sweep writes every cell of its rows itself.
   // Screen mode is CSR over elements: no [L, D] grids, no depth cap (so
   // no depth-overflow host fallbacks), rows byte-aligned in csr_nib.
   // Each block's rows start at the bytes of the blocks before it; the CSR
@@ -525,8 +526,15 @@ void* guac_pack_tile(
     t->valid.resize(L_out * D);
     t->packed_nib.resize(emit_nib ? L_out * Dp : 0);
   } else if (ll) {
+    // The sweep writes every cell of rows < n_loci; sentinel rows are
+    // empty slots.
     t->ll_pack.resize(L_out * D);
-    if (llm) t->ll_mapq.resize(L_out * D);
+    memset(t->ll_pack.data() + n_loci * D, 0xFF,
+           (size_t)((L_out - n_loci) * D) * sizeof(uint16_t));
+    if (llm) {
+      t->ll_mapq.resize(L_out * D);
+      memset(t->ll_mapq.data() + n_loci * D, 0, (size_t)((L_out - n_loci) * D));
+    }
   } else {
     for (int64_t b = 0; b < nblocks; b++)
       block_nib_off[(size_t)b + 1] =
@@ -548,18 +556,20 @@ void* guac_pack_tile(
   std::vector<AlleleKey> long_keys;
   std::map<AlleleKey, int32_t> long_key_ids;
   std::mutex long_key_mu;
-  // CSR mode runs a single locus-major fill pass (below) and needs no
-  // per-element code buffer (at 9M loci / 140M elements this buffer was
-  // >0.5 GB written+reread across two read-major passes).
-  raw_vector<int32_t> elem_code(csr ? 0 : n_loci * D);
-  std::vector<int32_t> fill(csr ? 0 : n_loci, 0);
+  // The CSR and likelihood modes run a single locus-major fill pass
+  // (below) and need no per-element code buffer (at 9M loci / 140M
+  // elements this buffer was >0.5 GB written+reread across two read-major
+  // passes). Only the full mode fills read-major.
+  raw_vector<int32_t> elem_code(full ? n_loci * D : 0);
+  std::vector<int32_t> fill(full ? n_loci : 0, 0);
 
-  timer_.mark("codes_alloc");
-  // Parallel padding pass (dense modes only — CSR has no padding):
-  // every cell at slot >= min(depth, D) gets the sentinel fill (and
-  // sentinel L-pad rows are fully padded). Runs over ALL L_out rows,
-  // decomposed independently of the read blocks.
-  if (!csr) {
+  // Parallel padding pass (full mode only — CSR has no padding, and the
+  // likelihood sweep pads each row as it writes it): every cell at slot
+  // >= min(depth, D) gets the sentinel fill (and sentinel L-pad rows are
+  // fully padded). Runs over ALL L_out rows, decomposed independently of
+  // the read blocks.
+  if (full) {
+    timer_.mark("codes_alloc");
     int64_t pad_block = std::max<int64_t>(
         256, (L_out + max_threads - 1) / max_threads);
     int64_t pad_nblocks = (L_out + pad_block - 1) / pad_block;
@@ -570,12 +580,6 @@ void* guac_pack_tile(
         int64_t dn =
             row < n_loci ? std::min<int64_t>(t->depth[row], D) : 0;
         int64_t base = row * D;
-        if (ll) {
-          for (int64_t s = dn; s < D; s++) t->ll_pack[base + s] = 0xFFFF;
-          if (llm)
-            memset(t->ll_mapq.data() + base + dn, 0, (size_t)(D - dn));
-          continue;
-        }
         for (int64_t s = dn; s < D; s++) {
           t->allele_id[base + s] = -1;
           t->qual[base + s] = 0;
@@ -591,9 +595,8 @@ void* guac_pack_tile(
           memset(t->packed_nib.data() + row * Dp, 0xFF, (size_t)Dp);
       }
     });
+    timer_.mark("padding");
   }
-
-  timer_.mark("padding");
   // Distinct short codes (< 0x40000) are collected during the fill with
   // per-thread seen bitmaps — long codes need no tracking, since every
   // interned long key is by construction used by some element.
@@ -601,9 +604,13 @@ void* guac_pack_tile(
   std::vector<std::vector<uint8_t>> thread_seen(
       (size_t)pass3_threads, std::vector<uint8_t>(0x40000, 0));
   std::vector<std::vector<int32_t>> thread_distinct((size_t)pass3_threads);
-  // Per-block uniq tables (stitched serially at the end). Dense modes
-  // store global sorted-key RANKS (pass 4); CSR stores raw CODES, which
-  // the stitch remaps once the global key table exists.
+  // Likelihood modes: a bitmap of the base qualities each thread writes
+  // into ll_pack (elements with an id below K), for the qual dictionary.
+  std::vector<std::array<uint64_t, 4>> thread_qseen(
+      ll ? (size_t)pass3_threads : 0, std::array<uint64_t, 4>{});
+  // Per-block uniq tables (stitched serially at the end). The full mode
+  // stores global sorted-key RANKS (pass 4); the single pass stores raw
+  // CODES, which the stitch remaps once the global key table exists.
   std::vector<std::vector<int32_t>> block_uniq((size_t)nblocks);
   t->num_alleles.assign(L_out, 0);
   // [L, K] tables: the fill passes zero each block's rows on its own
@@ -655,14 +662,16 @@ void* guac_pack_tile(
     });
   t->uniq_off.assign(L_out + 1, 0);
 
-  if (csr) {
-    // --- CSR single pass: locus-major fill -----------------------------
+  if (!full) {
+    // --- Single pass: locus-major fill (CSR and likelihood modes) ------
     // One sweep per block: a sliding active-read window delivers each
     // row's elements in read-start order (identical slot order to the
     // read-major fill); the row's distinct codes sort by allele order
-    // in-place, assigning dense ids, nibbles, counts, and flags in one
+    // in-place, assigning dense ids, then nibbles, counts and flags (CSR)
+    // or the row's ll_pack / ll_mapq cells and padding (likelihood) in one
     // touch per element. Replaces the two read-major passes (elem_code
-    // write + reread) the dense modes still use.
+    // write + reread) the full mode still uses. The likelihood rows take
+    // their first D elements; a deeper row overflows.
     parallel_blocks(nblocks, max_threads, [&](int64_t blk, int th) {
       int64_t bs = blk * block_size;
       int64_t be = std::min(bs + block_size, n_loci);
@@ -701,11 +710,23 @@ void* guac_pack_tile(
       // to `distinct`. Counts/ll sums accumulate during the single
       // element sweep and permute to allele order at row end — no
       // row_codes buffer, no second per-element pass, no nibble writes.
-      const bool skip_nib = skip_nibbles != 0;
+      const bool skip_nib = csr && skip_nibbles != 0;
       bool ll_live = false;  // per-row: lazy ll sums went live
       std::vector<int32_t> cnt_arr;
       std::vector<double> llc_arr;
       std::vector<double> llg_arr;
+      // Likelihood modes: the sweep writes each element's quality
+      // (q << 4) and MAPQ cell as it meets it, and its arrival id + 1 (0:
+      // MAPQ-filtered) into `arrival`; at row end `to_id` maps arrival ids
+      // to allele-order ids, ORed into the cells. `row_q` marks the row's
+      // qualities, which the thread's bitmap takes when every element
+      // keeps its cell (at most K alleles).
+      const bool arrival_ids = skip_nib || ll;
+      std::vector<uint16_t> arrival(ll ? (size_t)D : 0);
+      std::vector<uint16_t> to_id;
+      uint16_t* ll_row = nullptr;
+      uint8_t* mq_row = nullptr;
+      uint64_t row_q[4];
       // Per-row base-byte LUTs: nearly every element is an EV_BASE code
       // (match/mismatch), whose code varies only in the base byte at a
       // fixed row — one 256-entry table turns both distinct-collection
@@ -728,6 +749,13 @@ void* guac_pack_tile(
         if (tag == 0x30000) return 0;
         return 0xFFFFFFFFu;
       };
+      // A distinct code's arrival id: its index in `distinct`.
+      auto arrival_of = [&](int32_t c) -> int32_t {
+        if ((c & 0x70000) == 0x10000) return id_base[c & 0xff];
+        for (size_t d = 0; d < distinct.size(); d++)
+          if (distinct[d] == c) return (int32_t)d;
+        return -1;
+      };
       for (int64_t row = bs; row < be; row++) {
         int64_t locus = loci[row];
         while (next_m < members.size() &&
@@ -745,11 +773,16 @@ void* guac_pack_tile(
           next_m++;
         }
         int32_t dn = t->depth[row];
-        // Device counts return as int16; rows deeper than that go through
-        // the exact host path like any other overflow row.
-        if (dn > 32767) t->overflow[row] = 1;
+        // Device counts return as int16, and likelihood rows hold D
+        // elements; deeper rows go through the exact host path like any
+        // other overflow row.
+        if (dn > (ll ? D : 32767)) t->overflow[row] = 1;
         uint8_t* nib_row = nullptr;
-        if (!skip_nib) {
+        if (ll) {
+          ll_row = t->ll_pack.data() + row * D;
+          if (llm) mq_row = t->ll_mapq.data() + row * D;
+          row_q[0] = row_q[1] = row_q[2] = row_q[3] = 0;
+        } else if (!skip_nib) {
           nib_row = t->csr_nib.data() + nib_off;
           memset(nib_row, 0xFF, (size_t)((dn + 1) / 2));
           row_codes.clear();
@@ -763,8 +796,10 @@ void* guac_pack_tile(
           }
           ll_live = false;
         }
-        nib_off += (dn + 1) / 2;
-        t->csr_off[row + 1] = (int32_t)nib_off;
+        if (csr) {
+          nib_off += (dn + 1) / 2;
+          t->csr_off[row + 1] = (int32_t)nib_off;
+        }
         distinct.clear();
         if (ref_contig == nullptr) {
           // The row's reference base: the first read over it, in start
@@ -793,9 +828,16 @@ void* guac_pack_tile(
             act_mapq[w] = act_mapq[a];
           }
           size_t me = w++;
+          // Past the likelihood row's D slots: no element, no tables.
+          if (ll && (int64_t)me >= D) continue;
           if (act_filt[me]) {
-            // MAPQ-filtered: holds its slot (0xF nibble), no tables.
-            if (!skip_nib) {
+            // MAPQ-filtered: holds its slot (0xF nibble, 0xFFFF cell), no
+            // tables.
+            if (ll) {
+              ll_row[me] = 0xFFFF;
+              if (llm) mq_row[me] = 0;
+              arrival[me] = 0;
+            } else if (!skip_nib) {
               row_codes.push_back(-2);
               if (ll_screen) row_quals.push_back(0);
               if (ll_tumor) row_mapqs.push_back(0);
@@ -853,7 +895,12 @@ void* guac_pack_tile(
               break;
             }
           }
-          if (!skip_nib) {
+          if (ll) {
+            uint8_t q = ev_qual[ei];
+            ll_row[me] = (uint16_t)(q << 4);
+            if (llm) mq_row[me] = act_mapq[me];
+            row_q[q >> 6] |= 1ull << (q & 63);
+          } else if (!skip_nib) {
             row_codes.push_back(code);
             if (ll_screen) row_quals.push_back(ev_qual[ei]);
             if (ll_tumor) row_mapqs.push_back(act_mapq[me]);
@@ -864,8 +911,8 @@ void* guac_pack_tile(
             if (!seen_base[b]) {
               seen_base[b] = 1;
               touched[n_touched++] = b;
+              if (arrival_ids) id_base[b] = (int16_t)distinct.size();
               if (skip_nib) {
-                id_base[b] = (int16_t)distinct.size();
                 cnt_arr.push_back(0);
                 if (ll_screen) {
                   llc_arr.push_back(0.0);
@@ -878,7 +925,7 @@ void* guac_pack_tile(
                 distinct_short.push_back(code);
               }
             }
-            if (skip_nib) aid = id_base[b];
+            if (arrival_ids) aid = id_base[b];
           } else {
             if (code < 0x40000 && !seen_short[code]) {
               seen_short[code] = 1;
@@ -901,8 +948,9 @@ void* guac_pack_tile(
                 }
               }
             }
-            if (skip_nib) aid = found;
+            if (arrival_ids) aid = found;
           }
+          if (ll) arrival[me] = (uint16_t)(aid + 1);
           if (skip_nib) {
             cnt_arr[(size_t)aid]++;
             if (ll_screen) {
@@ -1013,9 +1061,42 @@ void* guac_pack_tile(
         }
         if (has_long) long_lock.unlock();
         t->uniq_off[row + 1] = n_distinct;  // summed by the stitch
-        int32_t* counts_row = t->counts.data() + row * K;
+        int32_t* counts_row = csr ? t->counts.data() + row * K : nullptr;
         int32_t n_ll_valid = 0;
-        if (skip_nib) {
+        if (ll) {
+          // OR each element's allele-order id into its cell (id 0, the
+          // only one of a one-allele row, is there already); past K
+          // alleles the cell empties. A filtered element's arrival 0 maps
+          // to 0 and leaves its 0xFFFF cell.
+          int32_t dd = (int32_t)std::min<int64_t>(dn, D);
+          if (n_distinct > 1) {
+            to_id.assign(distinct.size() + 1, 0);
+            for (int64_t u = 0; u < n_distinct; u++)
+              to_id[(size_t)arrival_of(sorted_codes[(size_t)u]) + 1] =
+                  (uint16_t)(u < K ? u : 0xFFFF);
+          }
+          if (n_distinct > K) {
+            row_q[0] = row_q[1] = row_q[2] = row_q[3] = 0;
+            for (int32_t slot = 0; slot < dd; slot++) {
+              if (!arrival[(size_t)slot]) continue;
+              uint16_t id = to_id[arrival[(size_t)slot]];
+              if (id == 0xFFFF) {
+                ll_row[slot] = 0xFFFF;
+                continue;
+              }
+              ll_row[slot] |= id;
+              uint8_t q = (uint8_t)(ll_row[slot] >> 4);
+              row_q[q >> 6] |= 1ull << (q & 63);
+            }
+          } else if (n_distinct > 1) {
+            for (int32_t slot = 0; slot < dd; slot++)
+              ll_row[slot] |= to_id[arrival[(size_t)slot]];
+          }
+          for (int i = 0; i < 4; i++) thread_qseen[(size_t)th][i] |= row_q[i];
+          // Padding out to D.
+          std::fill(ll_row + dd, ll_row + D, (uint16_t)0xFFFF);
+          if (llm) memset(mq_row + dd, 0, (size_t)(D - dd));
+        } else if (skip_nib) {
           // Fused mode: counts/ll sums already accumulated per arrival
           // id during the sweep — permute into allele (sorted) order.
           // Per-bucket f64 add order matches the two-phase fill (same
@@ -1023,18 +1104,7 @@ void* guac_pack_tile(
           // are bit-identical to it.
           int32_t na = (int32_t)std::min<int64_t>(n_distinct, K);
           for (int32_t u = 0; u < na; u++) {
-            int32_t c = sorted_codes[(size_t)u];
-            int32_t ai;
-            if ((c & 0x70000) == 0x10000) {
-              ai = id_base[c & 0xff];
-            } else {
-              ai = -1;
-              for (size_t d = 0; d < distinct.size(); d++)
-                if (distinct[d] == c) {
-                  ai = (int32_t)d;
-                  break;
-                }
-            }
+            int32_t ai = arrival_of(sorted_codes[(size_t)u]);
             counts_row[u] = cnt_arr[(size_t)ai];
             n_ll_valid += cnt_arr[(size_t)ai];
             if (ll_screen) {
@@ -1157,8 +1227,8 @@ void* guac_pack_tile(
         n_touched = 0;
       }
     });
-    timer_.mark("csr_single_pass");
-  } else
+    timer_.mark(csr ? "csr_single_pass" : "ll_single_pass");
+  } else {
   parallel_blocks(nblocks, max_threads, [&](int64_t blk, int th) {
     int64_t bs = blk * block_size;
     int64_t be = std::min(bs + block_size, n_loci);
@@ -1177,24 +1247,13 @@ void* guac_pack_tile(
       auto sp_it = special_by_read.find(r);
       for (int64_t row = std::max(lo, bs); row < std::min(hi, be); row++) {
         int32_t slot = fill[row]++;
-        if (!csr && slot >= D) {
-          // Dense grids cap the depth axis; CSR rows are exact-size.
+        if (slot >= D) {
+          // The grids cap the depth axis.
           t->overflow[row] = 1;
           continue;
         }
         int64_t off = loci[row] - start[r];
         int64_t cell = row * D + slot;
-        if (!full && min_mapq > 0 && mapq[r] < min_mapq) {
-          // MAPQ-filtered element: holds its slot, joins no allele table.
-          elem_code[cell] = -2;
-          if (ll) t->ll_pack[cell] = 0xFFFF;
-          if (llm) t->ll_mapq[cell] = 0;
-          continue;
-        }
-        if (ll) t->ll_pack[cell] = (uint16_t)(quals[off] << 4);
-        if (llm)
-          t->ll_mapq[cell] =
-              (uint8_t)std::min<int32_t>(std::max(mapq[r], 0), 255);
         uint8_t kind = kinds[off];
         int32_t code;
         uint8_t rb = t->ref_base[row];
@@ -1248,21 +1307,19 @@ void* guac_pack_tile(
           seen_short[code] = 1;
           distinct_short.push_back(code);
         }
-        if (full) {
-          t->qual[cell] = quals[off];
-          t->mapq[cell] = (int16_t)mapq[r];
-          t->strand[cell] = positive ? 1 : 0;
-          t->mismatches[cell] = (int16_t)mismatches[r];
-          t->edge[cell] = positive ? (int32_t)(end[r] - loci[row])
-                                   : (int32_t)(loci[row] - start[r]);
-          t->read_index[cell] = (int32_t)r;
-          t->valid[cell] = 1;
-        }
+        t->qual[cell] = quals[off];
+        t->mapq[cell] = (int16_t)mapq[r];
+        t->strand[cell] = positive ? 1 : 0;
+        t->mismatches[cell] = (int16_t)mismatches[r];
+        t->edge[cell] = positive ? (int32_t)(end[r] - loci[row])
+                                 : (int32_t)(loci[row] - start[r]);
+        t->read_index[cell] = (int32_t)r;
+        t->valid[cell] = 1;
       }
     }
   });
-
   timer_.mark("pass3_fill");
+  }
   // Global key table: decode every distinct code to its byte-pair key and
   // sort (rank order == Allele ordering).
   auto decode = [&](int32_t code) -> AlleleKey {
@@ -1324,11 +1381,11 @@ void* guac_pack_tile(
   }
 
   timer_.mark("key_table");
-  // Pass 4 (dense modes only — the CSR single pass already assigned ids):
+  // Pass 4 (full mode only — the single pass already assigned ids):
   // per-locus dense allele ids + uniq table + variant flags (parallel
   // over blocks with per-block uniq buffers, stitched serially).
   int64_t n_keys = (int64_t)keyed.size();
-  if (!csr) {
+  if (full) {
   // Distinct ranks per locus are found by marking a per-thread [n_keys]
   // scratch (reset row-by-row via the touched list) instead of sorting all
   // dn element ranks: O(dn + distinct*log distinct) per row instead of
@@ -1350,8 +1407,7 @@ void* guac_pack_tile(
     std::vector<int32_t> locus_ranks;
     for (int64_t row = bs; row < be; row++) {
       locus_ranks.clear();
-      int32_t dn = (int32_t)(csr ? t->depth[row]
-                                 : std::min<int64_t>(t->depth[row], D));
+      int32_t dn = (int32_t)std::min<int64_t>(t->depth[row], D);
       int64_t cell_base = row * D;
       for (int32_t slot = 0; slot < dn; slot++) {
         int32_t code = elem_code[cell_base + slot];
@@ -1381,36 +1437,27 @@ void* guac_pack_tile(
       }
       t->uniq_off[row + 1] = n_distinct;  // summed by the stitch
       // assign dense allele ids to the elements of this locus (and patch
-      // the 4-bit ids into the nibble transfer row — grid or CSR)
-      uint8_t* nib_row = nullptr;
-      if (csr) {
-        nib_row = t->csr_nib.data() + t->csr_off[row];
-        memset(nib_row, 0xFF, (size_t)((dn + 1) / 2));
-      } else if (full && emit_nib) {
-        nib_row = t->packed_nib.data() + row * Dp;
-      }
+      // the 4-bit ids into the nibble transfer row)
+      uint8_t* nib_row =
+          emit_nib ? t->packed_nib.data() + row * Dp : nullptr;
       for (int32_t slot = 0; slot < dn; slot++) {
         int64_t cell = cell_base + slot;
         int32_t code = elem_code[cell];
         if (code < 0) {
-          if (full) t->allele_id[cell] = -1;
+          t->allele_id[cell] = -1;
           continue;
         }
         int32_t rank = code_to_rank[code];
         int64_t id = rank2id[rank];
         if (id < K) {
-          if (full) t->allele_id[cell] = (int16_t)id;
-          if (ll) t->ll_pack[cell] |= (uint16_t)id;
+          t->allele_id[cell] = (int16_t)id;
           if (nib_row != nullptr) {
             int shift = (slot & 1) * 4;
             nib_row[slot >> 1] = (uint8_t)((nib_row[slot >> 1] &
                                             ~(0xF << shift)) |
                                            ((int)id << shift));
           }
-        } else if (ll) {
-          // beyond the allele cap: exclude from the likelihood screen
-          t->ll_pack[cell] = 0xFFFF;
-        } else if (full) {
+        } else {
           // beyond the cap: invalidate the slot (matches the Python packers)
           t->allele_id[cell] = -1;
           t->valid[cell] = 0;
@@ -1428,17 +1475,17 @@ void* guac_pack_tile(
       }
     }
   });
-  }  // !csr
   timer_.mark("pass4_ids");
+  }  // full
   // Stitch per-block uniq tables into the global values, and each row's
-  // count of alleles into offsets. CSR blocks recorded raw codes — remap
-  // them to global sorted ranks here.
+  // count of alleles into offsets. The single pass recorded raw codes —
+  // remap them to global sorted ranks here.
   int64_t total_uniq = 0;
   for (auto& u : block_uniq) total_uniq += (int64_t)u.size();
   t->uniq_key.resize((size_t)total_uniq);
   int32_t* uniq_out = t->uniq_key.data();
   for (auto& u : block_uniq)
-    for (int32_t v : u) *uniq_out++ = csr ? code_to_rank[v] : v;
+    for (int32_t v : u) *uniq_out++ = full ? v : code_to_rank[v];
   for (int64_t row = 0; row < n_loci; row++)
     t->uniq_off[row + 1] += t->uniq_off[row];
   // Sentinel rows (L padding) keep the last offset.
@@ -1446,39 +1493,25 @@ void* guac_pack_tile(
 
   timer_.mark("stitch");
 
-  if (ll && !t->ll_pack.empty()) {
-    // Qual-dictionary transcode (see PackedTile::ll_pack8): collect the
-    // distinct 12-bit qual fields, and when <= 16 exist, rewrite the
-    // encoding at one byte per element.
-    size_t n_cells = t->ll_pack.size();
-    int64_t qblocks =
-        std::max<int64_t>(1, (int64_t)(n_cells + (1 << 20) - 1) >> 20);
-    int qthreads = thread_count(qblocks, max_threads);
-    std::vector<std::vector<uint8_t>> seen_t(
-        (size_t)qthreads, std::vector<uint8_t>(4096, 0));
-    parallel_blocks(qblocks, max_threads, [&](int64_t b, int th) {
-      size_t lo = (size_t)b << 20;
-      size_t hi = std::min(n_cells, lo + (1 << 20));
-      uint8_t* seen = seen_t[(size_t)th].data();
-      for (size_t i = lo; i < hi; i++) {
-        uint16_t v = t->ll_pack[i];
-        if (v != 0xFFFF) seen[v >> 4] = 1;
-      }
-    });
-    std::vector<uint16_t> quals;
-    for (int q = 0; q < 4096; q++) {
-      for (int th = 0; th < qthreads; th++) {
-        if (seen_t[(size_t)th][(size_t)q]) {
-          quals.push_back((uint16_t)q);
+  if (ll) {
+    // Qual-dictionary transcode (see PackedTile::ll_pack8): the sweep
+    // marked the distinct qual fields it wrote, and when <= 16 exist, the
+    // encoding is rewritten at one byte per element.
+    std::vector<uint8_t> quals;
+    for (int q = 0; q < 256; q++)
+      for (const auto& seen : thread_qseen)
+        if (seen[q >> 6] >> (q & 63) & 1) {
+          quals.push_back((uint8_t)q);
           break;
         }
-      }
-    }
-    if (!quals.empty() && quals.size() <= 16 && quals.back() <= 255) {
-      uint8_t idx_of[4096];
+    if (!quals.empty() && quals.size() <= 16) {
+      uint8_t idx_of[256];
       for (size_t u = 0; u < quals.size(); u++)
         idx_of[quals[u]] = (uint8_t)u;
-      t->ll_qvals.assign(quals.begin(), quals.end());
+      t->ll_qvals = quals;
+      size_t n_cells = t->ll_pack.size();
+      int64_t qblocks =
+          std::max<int64_t>(1, (int64_t)(n_cells + (1 << 20) - 1) >> 20);
       t->ll_pack8.resize(n_cells);
       parallel_blocks(qblocks, max_threads, [&](int64_t b, int) {
         size_t lo = (size_t)b << 20;

@@ -240,6 +240,21 @@ DEPARTURES = {
          '    with trace.span("plan"):\n'
          + textwrap.indent(_STREAMING_PLAN, "    ")),
     ],
+    # The counter of the rows that the native packer's locus-major sweep
+    # fills in the dense likelihood modes.
+    "pack/columnar": [
+        ("from guacamole_tpu_torch.runtime.columnar import ColumnarReads\n",
+         "from guacamole_tpu_torch.runtime.columnar import ColumnarReads\n"
+         "from guacamole_tpu_torch.utils import trace\n"),
+        ("    if out is None:\n"
+         "        return None\n",
+         "    if out is None:\n"
+         "        return None\n"
+         '    if fields.startswith("likelihood") and max_alleles <= 15:\n'
+         "        # Modes 2 and 3: the rows the packer's locus-major sweep "
+         "filled.\n"
+         '        trace.count("pack.ll_sweep_rows", len(loci_arr))\n'),
+    ],
 }
 
 

@@ -34,6 +34,7 @@ in the package. This file holds that copy:
 """
 
 import dataclasses
+import itertools
 import json
 import os
 import pickle
@@ -659,11 +660,107 @@ def pack_input(tmp_path_factory):
     return cols, ref, {"dense": dense, "sparse": sparse}
 
 
-@pytest.mark.parametrize("window", [False, True], ids=["all_reads", "window"])
-@pytest.mark.parametrize("with_ref", [False, True], ids=["md", "ref_contig"])
-@pytest.mark.parametrize("mode", [0, 1, 2, 3])
-def test_copy_packs_what_the_jax_library_packs(pack_input, monkeypatch,
-                                               mode, with_ref, window):
+_DEEP_CONTIG = 600
+_DEEP_PAD = 32  # below the pile's depth
+_MANY_ALLELES = 300  # eleven alleles: more than K = 8
+
+
+def _deep_pack_sam(path, binned):
+    """A SAM for the dense likelihood tiles' caps: a pile of 70 reads of 60
+    bases, one starting at each locus from 100, so that its rows take
+    every depth from 1 to 60, past _DEEP_PAD; every ninth at MAPQ 10;
+    at locus _MANY_ALLELES the reference base, the three others, N, three
+    insertions and three deletions; shallow reads besides. Base qualities
+    from four levels (binned: the tile has a qual dictionary) or from 39
+    (more than 16: it has none)."""
+    rng = np.random.default_rng(21)
+    qrng = np.random.default_rng(22)
+    ref = rng.choice(list("ACGT"), _DEEP_CONTIG)
+    reads = []
+
+    def add(pos, ops, mapq=60, at_base=None, ins="", error=0.0):
+        seq, md, run, at = [], "", 0, pos
+        for op, n in ops:
+            if op == "I":
+                seq += list(ins)
+            elif op == "D":
+                md += f"{run}^{''.join(ref[at:at + n])}"
+                run, at = 0, at + n
+            else:
+                for base in ref[at:at + n]:
+                    read = base
+                    if at_base is not None and at == _MANY_ALLELES:
+                        read = at_base
+                    elif rng.random() < error:
+                        read = rng.choice(list("ACGTN"))
+                    seq.append(read)
+                    if read == base:
+                        run += 1
+                    else:
+                        md += f"{run}{base}"
+                        run = 0
+                    at += 1
+        levels = [2, 12, 23, 37] if binned else list(range(2, 41))
+        qual = "".join(chr(33 + int(q)) for q in qrng.choice(levels, len(seq)))
+        cigar = "".join(f"{n}{op}" for op, n in ops)
+        reads.append((pos, f"d{len(reads)}\t0\tchr1\t{pos + 1}\t{mapq}\t"
+                      f"{cigar}\t*\t0\t0\t{''.join(seq)}\t{qual}\t"
+                      f"MD:Z:{md}{run}"))
+
+    for i in range(70):
+        add(100 + i, [("M", 60)], mapq=10 if i % 9 == 0 else 60,
+            error=0.05)
+    start = _MANY_ALLELES - 20
+    for base in [ref[_MANY_ALLELES]] * 3 + sorted(
+            set("ACGTN") - {ref[_MANY_ALLELES]}):
+        add(start, [("M", 50)], at_base=base)
+    for n, ins in zip((1, 2, 3), ("A", "CG", "TTT")):
+        add(start, [("M", 21), ("I", n), ("M", 29)], ins=ins)
+        add(start, [("M", 21), ("D", n), ("M", 29)])
+    for pos in rng.integers(0, _DEEP_CONTIG - 80, 40):
+        add(int(pos), [("M", int(rng.integers(20, 80)))], error=0.05)
+    reads.sort(key=lambda r: r[0])
+    with open(path, "w") as fh:
+        fh.write(f"@HD\tVN:1.6\tSO:coordinate\n"
+                 f"@SQ\tSN:chr1\tLN:{_DEEP_CONTIG}\n")
+        for _, line in reads:
+            fh.write(line + "\n")
+    return "".join(ref).encode()
+
+
+@pytest.fixture(scope="module")
+def deep_pack_inputs(tmp_path_factory):
+    out = {}
+    for quals in ("binned", "raw"):
+        path = str(tmp_path_factory.mktemp("deep") / f"{quals}.sam")
+        ref = _deep_pack_sam(path, quals == "binned")
+        cols = jax_columnar.decode_sam_columnar(path)
+        assert cols is not None and cols.n == 123 and len(cols.sp_read) > 0
+        loci = np.setdiff1d(np.arange(_DEEP_CONTIG),
+                            np.r_[400:410]).astype(np.int64)
+        out[quals] = cols, ref, {"dense": loci}
+    return out
+
+
+# The crafted SAM in every mode; the deep one in the dense likelihood
+# modes (2, 3), with and without a qual dictionary.
+_PACK_CASES = [
+    pytest.param(mode, with_ref, window, "crafted",
+                 id=f"{mode}-{'ref_contig' if with_ref else 'md'}-"
+                    f"{'window' if window else 'all_reads'}")
+    for mode in (0, 1, 2, 3) for with_ref in (False, True)
+    for window in (False, True)
+] + [
+    pytest.param(mode, with_ref, False, f"deep_{quals}",
+                 id=f"{mode}-{'ref_contig' if with_ref else 'md'}-deep_{quals}")
+    for mode in (2, 3) for with_ref in (False, True)
+    for quals in ("binned", "raw")
+]
+
+
+@pytest.mark.parametrize("mode,with_ref,window,sample", _PACK_CASES)
+def test_copy_packs_what_the_jax_library_packs(request, monkeypatch,
+                                               mode, with_ref, window, sample):
     """Every array guac_pack_tile returns, from the port's library and
     from the JAX package's, is the same, dtype and bytes, in each of the
     packer's four modes: the row ranges of reads found by a forward walk,
@@ -674,40 +771,60 @@ def test_copy_packs_what_the_jax_library_packs(pack_input, monkeypatch,
     binary search a read and a pass of its own gave. Dense and sparse
     loci, MAPQ filter on and off, sentinel rows past the loci (l_pad) or
     none; in mode 1 the likelihood screen and the fused fill too. The
-    JAX library packs on one thread: on more, its CSR pass reads the table
-    of long allele keys while other threads grow it (the race the port's
-    lock repairs), and may read freed memory. The outputs do not depend on
-    the number of threads."""
-    cols, ref, loci_sets = pack_input
+    dense likelihood modes (2, 3) fill their rows in the locus-major sweep
+    of the CSR mode: on the deep SAM they hold the JAX library's rows that
+    overflow their D slots (depth_pad below the pile), its rows of more
+    than K alleles, and its qual dictionary where the tile has one and
+    where it has none. The JAX library packs on one thread: on more, its
+    CSR pass reads the table of long allele keys while other threads grow
+    it (the race the port's lock repairs), and may read freed memory. The
+    outputs do not depend on the number of threads."""
+    deep = sample != "crafted"
+    cols, ref, loci_sets = (
+        request.getfixturevalue("deep_pack_inputs")[sample[5:]] if deep
+        else request.getfixturevalue("pack_input"))
     packs = 0
     for name, loci in loci_sets.items():
-        for min_mapq in (0, 20):
-            for l_pad in (0, len(loci) + 37):
-                kw = dict(
-                    mode=mode, min_mapq=min_mapq, l_pad=l_pad,
-                    ref_contig=ref if with_ref else None,
-                    scan_window=cols.read_scan_window(
-                        0, int(loci[0]), int(loci[-1])) if window else None,
-                    ll_screen_margin=4.0 if mode == 1 else 0.0,
-                    ll_screen_kind=2 if mode == 3 else 1,
-                    skip_nibbles=mode == 1 and l_pad > 0)
-                got = port_native.pack_tile_native(cols, 0, loci, 8, **kw)
-                with monkeypatch.context() as one_thread:
-                    one_thread.setenv("GUAC_PACK_THREADS", "1")
-                    want = jax_native.pack_tile_native(cols, 0, loci, 8, **kw)
-                assert got.keys() == want.keys()
-                for key, value in want.items():
-                    assert np.asarray(got[key]).dtype == np.asarray(
-                        value).dtype, (name, min_mapq, l_pad, key)
-                    assert np.array_equal(got[key], value), (
-                        name, min_mapq, l_pad, key)
-                ref_base = np.asarray(want["ref_base"])
-                assert want["L"] == max(l_pad, len(loci))
-                if not with_ref and name == "dense":
-                    rows = np.searchsorted(loci, list(_N_RUN))
-                    assert set(ref_base[rows]) == {ord("N")}
-                    assert set(ref_base[:len(loci)]) > {ord("N")}
-                packs += 1
+        for min_mapq, l_pad, depth_pad in (
+                itertools.product((0, 20), (0, len(loci) + 37),
+                                  (0, _DEEP_PAD) if deep else (0,))):
+            kw = dict(
+                mode=mode, min_mapq=min_mapq, l_pad=l_pad,
+                depth_pad=depth_pad,
+                ref_contig=ref if with_ref else None,
+                scan_window=cols.read_scan_window(
+                    0, int(loci[0]), int(loci[-1])) if window else None,
+                ll_screen_margin=4.0 if mode == 1 else 0.0,
+                ll_screen_kind=2 if mode == 3 else 1,
+                skip_nibbles=mode == 1 and l_pad > 0)
+            got = port_native.pack_tile_native(cols, 0, loci, 8, **kw)
+            with monkeypatch.context() as one_thread:
+                one_thread.setenv("GUAC_PACK_THREADS", "1")
+                want = jax_native.pack_tile_native(cols, 0, loci, 8, **kw)
+            assert got.keys() == want.keys()
+            for key, value in want.items():
+                assert np.asarray(got[key]).dtype == np.asarray(
+                    value).dtype, (name, min_mapq, l_pad, depth_pad, key)
+                assert np.array_equal(got[key], value), (
+                    name, min_mapq, l_pad, depth_pad, key)
+            ref_base = np.asarray(want["ref_base"])
+            assert want["L"] == max(l_pad, len(loci))
+            if not with_ref and name == "dense" and not deep:
+                rows = np.searchsorted(loci, list(_N_RUN))
+                assert set(ref_base[rows]) == {ord("N")}
+                assert set(ref_base[:len(loci)]) > {ord("N")}
+            if deep:
+                # The caps this SAM is built to reach.
+                n, D = len(loci), want["D"]
+                depth = np.asarray(want["depth"])[:n]
+                overflow = np.asarray(want["overflow"])[:n]
+                assert (depth == D + 1).any() == (depth_pad > 0)
+                assert overflow[depth > D].all()
+                row = np.searchsorted(loci, _MANY_ALLELES)
+                assert want["num_alleles"][row] == 8 and overflow[row]
+                assert (np.asarray(want["ll_pack8"]).size > 0) == (
+                    sample == "deep_binned")
+            packs += 1
     assert packs == 8
 
 

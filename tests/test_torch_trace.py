@@ -12,12 +12,14 @@ import json
 import os
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from guacamole_tpu_torch import cli
 from guacamole_tpu_torch.ops import dispatch
+from guacamole_tpu_torch.pack.columnar import pack_tile_columnar
 from guacamole_tpu_torch.runtime import columnar
 from guacamole_tpu_torch.utils import trace
 from guacamole_tpu_torch.utils.simulate import make_scale_fixture
@@ -304,6 +306,9 @@ def test_somatic_call_records_its_confirm_spans(somatic_traced):
 def test_somatic_counters_bound_each_other(somatic_traced):
     counters, spans = somatic_traced["counters"], somatic_traced["spans"]
     assert counters["screen.rows"] == counters["pack.rows"] > 0
+    # Every tumor screen tile is a mode-3 tile of the packer's sweep, whose
+    # rows of loci the counter counts (pack.rows counts sentinel rows too).
+    assert 0 < counters["pack.ll_sweep_rows"] <= counters["pack.rows"]
     assert 0 < counters["screen.flagged"] <= counters["screen.rows"]
     assert counters["confirm.pileups"] == len(
         [s for s in spans if s["name"] == "confirm.pileup"]) > 0
@@ -328,3 +333,28 @@ def test_somatic_untraced_records_nothing_and_writes_the_same_vcf(
     run_somatic(fixture_files, out)
     assert trace.snapshot()["spans"] == before
     assert vcf_body(out) == vcf_body(somatic_traced["vcf"])
+
+
+def test_ll_sweep_rows_counts_the_rows_of_dense_likelihood_tiles(
+        fixture_bam):
+    """pack.ll_sweep_rows counts the rows that the native packer's
+    locus-major sweep fills in its dense likelihood modes: each row of a
+    mode-3 tile (likelihood_mapq), sentinel rows not, and none of a mode-1
+    tile (screen)."""
+    cols = columnar.decode_bam_columnar(fixture_bam)
+    assert cols is not None
+    first = int(cols.start[cols.ref_id == 0].min())
+    loci = np.arange(first, first + 6_000, dtype=np.int64)
+
+    def pack(fields, l_pad=0):
+        return pack_tile_columnar(cols, 0, cols.ref_names[0], loci,
+                                  fields=fields, min_mapq=1, l_pad=l_pad)
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        screen = pack("screen")
+        assert screen.csr_off is not None and screen.depth.sum() > 0
+        assert "pack.ll_sweep_rows" not in trace.snapshot()["counters"]
+        tile = pack("likelihood_mapq", l_pad=len(loci) + 37)
+    assert tile.ll_mapq is not None and tile.ll_pack.shape[0] == len(loci) + 37
+    assert tile.depth.sum() > 0
+    assert trace.snapshot()["counters"]["pack.ll_sweep_rows"] == len(loci)
